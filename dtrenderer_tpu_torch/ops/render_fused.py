@@ -1,0 +1,273 @@
+"""Fused visibility + shading draw: the host side and its plain twin.
+
+Port of `dtrenderer_tpu/ops/render_fused.py`. On a CUDA tensor `render_fused`
+launches the hand-written kernel `csrc/render_fused.cu` (one launch per call)
+and counts it in `KERNEL_LAUNCHES`; on a CPU tensor it runs
+`render_fused_plain`, the same function in plain torch. There is no fallback
+between the two: any other device raises.
+
+Payload: the full 34-channel layout of the reference (`FULL_LAYOUT`), per
+triangle:
+  0 tex_base 1 tw 2 th 3 flags (bit0 phong, bit1 bilinear — see pack_flags)
+  4..13 corner0 (q, u*q, v*q, r*q, g*q, b*q, a*q, nx*q, ny*q, nz*q)
+  14..23 corner1   24..33 corner2
+The reference's layout elisions (`plan_layout`) are bit-exact bandwidth
+savings for the TPU and are not ported. The mode of each pixel comes from its
+triangle's flags, so one launch serves mixed sampling and shading.
+
+Texture LUT: texel-major f32 [L, 4] (one tap is one 16-byte load), with the
+reference's per-texture (base, tw, th) metadata.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dtrenderer_tpu_torch.ops.binning import Bins
+from dtrenderer_tpu_torch.ops.geometry import (
+    SETUP_CHANNELS, coverage_and_depth, interp as bary_interp,
+)
+from dtrenderer_tpu_torch.ops.shading import Light, sqrt_exact
+
+F32 = torch.float32
+I32 = torch.int32
+
+PAYLOAD_CHANNELS = 34
+P_TEXBASE, P_TW, P_TH, P_FLAGS = 0, 1, 2, 3
+P_C0 = 4            # corner0 base channel
+CORNER_STRIDE = 10  # q, u*q, v*q, rgba*q (4), n*q (3)
+
+# The kernel's tile (csrc/render_fused.cu kTileH/kTileW); bins for a kernel
+# launch are made with this tile.
+TILE_H = 16
+TILE_W = 16
+
+# Kernel launches made by render_fused (CUDA tensors only).
+KERNEL_LAUNCHES = 0
+
+
+def pack_flags(is_phong: bool, is_bilinear: bool) -> float:
+    """Per-triangle P_FLAGS payload value."""
+    return float(int(is_phong) + 2 * int(is_bilinear))
+
+
+def pack_payload(attrs10, meta, flags_value: float):
+    """One draw's payload [T, 34] from its q-premultiplied corner attrs
+    [T, 3, 10], its texture placement meta (base, tw, th) and its
+    pack_flags value."""
+    T = attrs10.shape[0]
+    head = torch.tensor([*meta, flags_value], dtype=F32,
+                        device=attrs10.device).expand(T, 4)
+    return torch.cat([head, attrs10.reshape(T, 3 * CORNER_STRIDE)], dim=1)
+
+
+def make_texture_lut(textures):
+    """Pack textures (premultiplied linear f32 [th, tw, 4], one device) into
+    one texel-major LUT [L, 4] plus per-texture (base, tw, th) metadata.
+
+    The same tensor object passed twice is stored once. The total is capped at
+    2^24 texels: the metadata rides f32 payload channels, which hold integers
+    exactly only below 2^24."""
+    rows = []
+    meta = []
+    base = 0
+    seen: dict[int, tuple[int, int, int]] = {}
+    for tex in textures:
+        th, tw = int(tex.shape[0]), int(tex.shape[1])
+        cached = seen.get(id(tex))
+        if cached is not None:
+            meta.append(cached)
+            continue
+        rows.append(tex.reshape(-1, 4))
+        m = (base, tw, th)
+        meta.append(m)
+        seen[id(tex)] = m
+        base += th * tw
+    if base > 1 << 24:
+        raise ValueError(f"texture LUT has {base} texels; the (base, tw, th) "
+                         f"payload channels are exact only below 2^24")
+    return torch.cat(rows, dim=0).to(F32).contiguous(), meta
+
+
+def _check(coef, payload, bins: Bins, tex_lut, light: Light, height, width):
+    device = coef.device
+    T = coef.shape[0]
+    if coef.dtype != F32 or coef.shape != (T, SETUP_CHANNELS):
+        raise ValueError(f"coef must be f32 [T, 16], got {coef.dtype} "
+                         f"{tuple(coef.shape)}")
+    if payload.dtype != F32 or payload.shape != (T, PAYLOAD_CHANNELS):
+        raise ValueError(f"payload must be f32 [{T}, {PAYLOAD_CHANNELS}], got "
+                         f"{payload.dtype} {tuple(payload.shape)}")
+    if tex_lut.dtype != F32 or tex_lut.dim() != 2 or tex_lut.shape[1] != 4 \
+            or tex_lut.shape[0] < 1:
+        raise ValueError(f"tex_lut must be f32 [L>=1, 4], got "
+                         f"{tex_lut.dtype} {tuple(tex_lut.shape)}")
+    n_tiles = (-(-height // bins.tile_h)) * (-(-width // bins.tile_w))
+    if bins.tile_start.shape != (n_tiles + 1,) or \
+            bins.tile_start.dtype != I32 or bins.tri_ids.dtype != I32:
+        raise ValueError("bins do not match this frame size (re-bin with "
+                         "binning.bin_triangles for the same height/width)")
+    for name, t in (("payload", payload), ("tile_start", bins.tile_start),
+                    ("tri_ids", bins.tri_ids), ("tex_lut", tex_lut),
+                    ("light.direction", light.direction),
+                    ("light.ambient", light.ambient)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, coef on {device}")
+
+
+def render_fused(coef, payload, bins: Bins, tex_lut, light: Light,
+                 height: int, width: int, y_offset: int = 0,
+                 x_offset: int = 0):
+    """Fused visibility + shading of every binned triangle.
+
+    Returns (z [H,W] f32, +inf where uncovered; src [H,W,4] premultiplied
+    f32, 0 where uncovered; overflow i32 scalar). The caller merges into a
+    framebuffer: win = z < fb.depth; color = where(win, blend_over(src,
+    fb.color), fb.color). (y_offset, x_offset) is this [height, width]
+    shard's origin in the frame the coefs were set up for.
+    """
+    global KERNEL_LAUNCHES
+    _check(coef, payload, bins, tex_lut, light, height, width)
+    if coef.device.type == "cpu":
+        return render_fused_plain(coef, payload, bins, tex_lut, light,
+                                  height, width, y_offset, x_offset)
+    if coef.device.type != "cuda":
+        raise NotImplementedError(
+            f"render_fused runs on CUDA (kernel) or CPU (plain twin), not "
+            f"{coef.device.type}")
+    from dtrenderer_tpu_torch.kernels import render_fused as k1
+
+    if (bins.tile_h, bins.tile_w) != (TILE_H, TILE_W):
+        raise ValueError(f"the kernel needs bins of {TILE_H}x{TILE_W} tiles, "
+                         f"got {bins.tile_h}x{bins.tile_w}")
+    if -(-height // TILE_H) > 65535:
+        raise ValueError(f"height {height} exceeds the kernel's grid limit")
+    coef = coef.contiguous()
+    payload = payload.contiguous()
+    tex_lut = tex_lut.contiguous()
+    if coef.data_ptr() % 16 or tex_lut.data_ptr() % 16:
+        raise ValueError("coef and tex_lut must be 16-byte aligned (the "
+                         "kernel reads them as float4)")
+    scalars = torch.cat([light.direction.reshape(3).to(F32),
+                         light.ambient.reshape(1).to(F32)])
+    z = torch.empty((height, width), dtype=F32, device=coef.device)
+    src = torch.empty((height, width, 4), dtype=F32, device=coef.device)
+    with torch.cuda.device(coef.device):
+        k1.launch(coef, payload, bins.tile_start.contiguous(),
+                  bins.tri_ids.contiguous(), tex_lut, scalars, z, src,
+                  height, width, int(y_offset), int(x_offset))
+    KERNEL_LAUNCHES += 1
+    return z, src, bins.overflow
+
+
+def render_fused_plain(coef, payload, bins: Bins, tex_lut, light: Light,
+                       height: int, width: int, y_offset: int = 0,
+                       x_offset: int = 0):
+    """The kernel's plain-torch twin: same inputs, same outputs, same op
+    order. Phase 1 pads the CSR lists to [n_tiles, max_count] and loops over
+    the slot index, vectorised over all tiles x tile pixels; phase 2 shades
+    every covered pixel at once by gathering its winner's payload."""
+    device = coef.device
+    th_, tw_ = bins.tile_h, bins.tile_w
+    n_ty, n_tx = -(-height // th_), -(-width // tw_)
+    n_tiles = n_ty * n_tx
+    P = th_ * tw_
+
+    # pixel centres per (tile, tile pixel), tiles row-major
+    ly = torch.arange(P, device=device) // tw_
+    lx = torch.arange(P, device=device) % tw_
+    ty = torch.arange(n_tiles, device=device) // n_tx
+    tx = torch.arange(n_tiles, device=device) % n_tx
+    gy = ty[:, None] * th_ + ly[None, :]                     # [n_tiles, P]
+    gx = tx[:, None] * tw_ + lx[None, :]
+    py = (gy + y_offset).to(F32) + 0.5
+    px = (gx + x_offset).to(F32) + 0.5
+
+    # ---- phase 1: (min z, min id) winner, slot by slot ----
+    starts = bins.tile_start.to(torch.int64)
+    counts = starts[1:] - starts[:-1]
+    max_count = int(counts.max()) if n_tiles else 0
+    bz = torch.full((n_tiles, P), float("inf"), dtype=F32, device=device)
+    bid = torch.full((n_tiles, P), torch.iinfo(I32).max, dtype=I32,
+                     device=device)
+    bb = [torch.zeros((n_tiles, P), dtype=F32, device=device)
+          for _ in range(3)]
+    n_pairs = bins.tri_ids.shape[0]
+    for s in range(max_count):
+        has = s < counts
+        slot = torch.clamp(starts[:-1] + s, max=n_pairs - 1)
+        ids = torch.where(has, bins.tri_ids[slot], 0)
+        inside, z, b = coverage_and_depth(coef[ids.to(torch.int64)][:, None, :],
+                                          px, py)
+        ids = ids[:, None]
+        take = inside & has[:, None] & ((z < bz) | ((z == bz) & (ids < bid)))
+        bz = torch.where(take, z, bz)
+        bid = torch.where(take, ids, bid)
+        bb = [torch.where(take, bn, bo) for bn, bo in zip(b, bb)]
+
+    def to_image(a):  # [n_tiles, P, ...] -> [H, W, ...]
+        rest = a.shape[2:]
+        a = a.reshape(n_ty, n_tx, th_, tw_, *rest).transpose(1, 2)
+        return a.reshape(n_ty * th_, n_tx * tw_, *rest)[:height, :width]
+
+    z_img = to_image(bz)
+    covered = z_img != float("inf")
+    src = torch.zeros((height, width, 4), dtype=F32, device=device)
+    win = to_image(bid)[covered].to(torch.int64)
+    if win.numel() == 0:
+        return z_img.contiguous(), src, bins.overflow
+    b0, b1, b2 = (to_image(x)[covered] for x in bb)
+
+    # ---- phase 2: shade the covered pixels ----
+    p = payload[win]                                           # [N, 34]
+
+    def interp(off):
+        return bary_interp((b0, b1, b2), p[:, P_C0 + off],
+                           p[:, P_C0 + CORNER_STRIDE + off],
+                           p[:, P_C0 + 2 * CORNER_STRIDE + off])
+
+    qf = interp(0)
+    inv_qf = torch.reciprocal(torch.where(qf != 0, qf, torch.ones_like(qf)))
+    u = interp(1) * inv_qf
+    v = interp(2) * inv_qf
+    rgba = torch.stack([interp(3 + c) * inv_qf for c in range(4)], dim=-1)
+    base, tw, th, flags = (p[:, P_TEXBASE], p[:, P_TW], p[:, P_TH],
+                           p[:, P_FLAGS])
+    tex_len = tex_lut.shape[0]
+
+    def tap(xf, yf):
+        txi = torch.minimum(torch.clamp_min(xf, 0.0), tw - 1.0).to(I32)
+        tyi = torch.minimum(torch.clamp_min(yf, 0.0), th - 1.0).to(I32)
+        idx = base.to(I32) + tyi * tw.to(I32) + txi
+        return tex_lut[torch.clamp(idx, 0, tex_len - 1).to(torch.int64)]
+
+    def lerp2(a, b, t):
+        return a + (b - a) * t
+
+    one_minus_v = 1.0 - v
+    nearest = tap(torch.floor(u * tw), torch.floor(one_minus_v * th))
+    fxs = u * tw - 0.5
+    fys = one_minus_v * th - 0.5
+    x0f = torch.floor(fxs)
+    y0f = torch.floor(fys)
+    ax = (fxs - x0f)[:, None]
+    ay = (fys - y0f)[:, None]
+    bilinear = lerp2(lerp2(tap(x0f, y0f), tap(x0f + 1.0, y0f), ax),
+                     lerp2(tap(x0f, y0f + 1.0), tap(x0f + 1.0, y0f + 1.0), ax),
+                     ay)
+    texel = torch.where((flags >= 2.0)[:, None], bilinear, nearest)
+    shaded = texel * rgba
+
+    # per-pixel Phong where flags bit 0 is set (FORMULAS.md lighting)
+    nx, ny, nz = (interp(7 + c) * inv_qf for c in range(3))
+    d = (nx * nx + ny * ny) + nz * nz
+    nlen = sqrt_exact(torch.where(d > 0, d, torch.ones_like(d)))
+    lx, lyl, lz = light.direction[0], light.direction[1], light.direction[2]
+    llen = sqrt_exact((lx * lx + lyl * lyl) + lz * lz)
+    ndl = ((nx / nlen) * (lx / llen) + (ny / nlen) * (lyl / llen)) + (
+        nz / nlen) * (lz / llen)
+    term = light.ambient + (1.0 - light.ambient) * torch.clamp_min(ndl, 0.0)
+    phong = torch.fmod(flags, 2.0) > 0
+    lit = torch.cat([shaded[:, :3] * term[:, None], shaded[:, 3:]], dim=1)
+    src[covered] = torch.where(phong[:, None], lit, shaded)
+    return z_img.contiguous(), src, bins.overflow
