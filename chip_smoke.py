@@ -6,27 +6,46 @@
 Run from the root of a checkout. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile csrc/render_fused.cu with nvcc (timed);
-  3. kernel vs plain twin at the main path's shapes: config 4 at 1920x1080
-     and config 5 at 3840x2160 with 1,000,000 triangles (t = 0.5): z equal
-     bit for bit, src max |diff| <= 1e-6, packed sRGB u8 within +-1 with
-     zero outliers; both timed with CUDA events;
-  4. main path: make_config4().frame for 3 frames and make_config5().frame
-     for 2 frames through the public draw_meshes/draw_mesh, with the kernel
-     launch count reset just before and read just after (one launch per
-     frame); ms/frame, shaded Mpix/s and Mtris/s;
-  5. stage breakdown of one frame per scene (vertex stage + packing,
-     binning, kernel, merge), after the counted main-path window;
-  6. reference check: small config 4 (160x120) and config 5 (256x128, 2,000
-     triangles) frames rendered on the card against the same frames rendered
-     on the CPU by the plain twin: z bit-equal, u8 within +-1, no outliers.
+  2. build: compile the three kernels (csrc/render_fused.cu = K1,
+     csrc/raster_visibility.cu = K2, csrc/render_ordered.cu = K3), one nvcc
+     per source, all started together; seconds, registers and spills;
+  3. kernel vs plain twin at the main paths' shapes, both timed with CUDA
+     events (plain, kernel, kernel, plain):
+       K1 at config 4 (1920x1080) and config 5 (3840x2160, 1,000,000
+         triangles, t = 0.5): z bit-equal, src max |diff| <= 1e-6, packed u8
+         within +-1 with zero outliers;
+       K2 at config 5 and at config 4's four 1080p draws: z bit-equal, tri
+         equal at every pixel;
+       K3 at the translucent sphere (uv_sphere(50, 52), 5,096 triangles,
+         1920x1080 over a cleared framebuffer): depth bit-equal, colour max
+         |diff| <= 1e-6, packed u8 within +-1 with zero outliers;
+  4. main paths through the public entry points, each with every kernel's
+     launch count set to 0 just before and read just after:
+       config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
+         frames: one K1 launch per frame;
+       config 5 on backend "pallas", 2 frames: one K2 launch per frame;
+       config 4 on backend "pallas", 2 frames: four K2 launches per frame;
+       the translucent sphere through draw_mesh_ordered, 3 frames: one K3
+         launch per frame;
+       config 4's draws at 1080p with the first sphere translucent
+         (alpha 0.6) between the opaque draws, one draw_meshes, 2 frames:
+         one K1 launch per opaque run (2) and one K3 launch per frame;
+     ms/frame, shaded Mpix/s and Mtris/s;
+  5. stage breakdown of one frame per path (vertex stage + packing,
+     binning, kernel, merge or deferred shading), after the counted windows;
+  6. reference check, small frames on the card against the same frames on
+     the CPU: configs 1-3 (160x120) on "ref", "pallas" and "fused", configs
+     4 and 5 small on "fused", and a 160x120 translucent sphere through the
+     "tile" and "scan" engines: depth bit-equal, u8 within +-1, no outliers.
 
-Prints one JSON line describing the kernels, then, as the last line,
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+Prints one JSON line describing the kernels (with each kernel's least time
+on the card, its bound), then, as the last line, {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -35,6 +54,23 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC_TOL = 1e-6
+DEVICE = "cuda:0"  # the card the phases run on
+
+# The least time the card could take: the larger
+# of bytes moved over the memory rate and operations over the peak rate of
+# their type (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s
+# float32 outside the tensor cores, both at the 700 W limit).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# float32 operations the kernels must do, counted from FORMULAS.md:
+EDGE_OPS = 12      # per (binned triangle, pixel in tile and bbox): 3 x (2 mul
+                   # + 2 add); a pixel outside the bbox cannot be covered
+BARY_Z_OPS = 8     # per covered fragment: 3 mul barycentrics, 3 mul 2 add z
+SHADE_BASE = 46    # interp of 7 channels (5 each), 1 divide, 6 mul, modulate 4
+SHADE_NEAREST = 3  # u*tw, 1-v, *th
+SHADE_BILINEAR = 45  # fxs/fys 5, fractions 2, +1 2, 12 lerps of 3
+SHADE_PHONG = 47   # interp 3x5, 3 mul, norm 5+1+3, light 9, dot 5, max, term 2, 3 mul
+BLEND_OPS = 9      # 1 - a, 4 mul, 4 add
 
 
 def card_line() -> str:
@@ -58,6 +94,59 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def interleaved_ms(kernel, plain, reps: int):
+    """(kernel ms, plain ms, the four readings), timed plain, kernel,
+    kernel, plain in one call; each the best of its two batches."""
+    p1 = cuda_ms(plain, 1)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, 1)
+    return min(k1, k2), min(p1, p2), (p1, k1, k2, p2)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def edge_pixels(bbox, bins, width) -> int:
+    """Pixels whose edge functions these inputs need: over every binned
+    (tile, triangle) pair, the tile's pixels inside the triangle's
+    (inclusive, frame-clamped) bbox."""
+    import torch
+
+    counts = (bins.tile_start[1:] - bins.tile_start[:-1]).long()
+    tile = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    n_tx = -(-width // bins.tile_w)
+    ty0 = (tile // n_tx) * bins.tile_h
+    tx0 = (tile % n_tx) * bins.tile_w
+    bb = bbox[bins.tri_ids.long()].long()
+    w = (torch.minimum(bb[:, 2], tx0 + bins.tile_w - 1)
+         - torch.maximum(bb[:, 0], tx0) + 1).clamp(min=0)
+    h = (torch.minimum(bb[:, 3], ty0 + bins.tile_h - 1)
+         - torch.maximum(bb[:, 1], ty0) + 1).clamp(min=0)
+    return int((w * h).sum())
+
+
+def shade_ops(flags):
+    """float32 operations to shade one fragment of each triangle flag in
+    `flags` (a tensor of payload flags values), summed."""
+    import torch
+
+    bil = flags >= 2.0
+    phong = torch.fmod(flags, 2.0) > 0
+    per = (SHADE_BASE + torch.where(bil, SHADE_BILINEAR, SHADE_NEAREST)
+           + torch.where(phong, SHADE_PHONG, 0))
+    return int(per.sum())
 
 
 def compare(tag, z_a, src_a, z_b, src_b):
@@ -84,122 +173,434 @@ def compare(tag, z_a, src_a, z_b, src_b):
     return err
 
 
-def kernel_vs_plain(spec, card):
-    """Phase 3 for one scene: returns (max_abs_err, kernel ms, plain ms)."""
+def bin_batch(batch, height, width):
+    from dtrenderer_tpu_torch.ops import binning, render_fused as rf
+
+    return binning.bin_triangles(batch.coef, batch.bbox, batch.valid, height,
+                                 width, 0, 0, rf.TILE_H, rf.TILE_W)
+
+
+def bin_report(tag, batch, bins):
+    counts = bins.tile_start[1:] - bins.tile_start[:-1]
+    print(f"{tag}: {batch.coef.shape[0]} setup rows, {bins.tri_ids.shape[0]} "
+          f"(tile, tri) pairs, max bin {int(counts.max())}")
+
+
+def pack_submission(spec, t=0.5):
+    from dtrenderer_tpu_torch.ops import pipeline
+
+    sub = spec.submission(t)
+    return sub, pipeline.pack_draws(sub.draws, sub.view_proj, sub.light,
+                                    sub.sampling_mode, spec.width,
+                                    spec.height, near_clip=sub.near_clip)
+
+
+# ------------------------------------------------------------------ scenes
+
+
+class Scene:
+    """A frame function with what the report needs (not a package scene:
+    the translucent scenes are defined here, as bench.py defines its
+    ordered scene)."""
+
+    def __init__(self, name, width, height, n_tris, frame, submission=None):
+        self.name, self.width, self.height = name, width, height
+        self.n_tris, self.frame, self.submission = n_tris, frame, submission
+
+
+def translucent_sphere(width, height, device, n_lat=50, n_lon=52,
+                       engine="tile"):
+    """bench.py's ordered scene: uv_sphere(50, 52) (5,096 triangles),
+    colour (0.8, 0.5, 0.9, 0.5), gouraud, model (0,0,-3) rotate_y(0.4)
+    scale 1.4, light (0.4, 0.6, 1.0) ambient 0.15, over a cleared
+    framebuffer; frame t turns it by rotate_y(t - 0.5)."""
+    import numpy as np
     import torch
 
-    from dtrenderer_tpu_torch.ops import binning, pipeline, render_fused as rf
+    from dtrenderer_tpu_torch.models import primitives
+    from dtrenderer_tpu_torch.ops import fb as fblib
+    from dtrenderer_tpu_torch.ops.pipeline import DrawSpec, draw_mesh_ordered
+    from dtrenderer_tpu_torch.ops.shading import make_light
+    from dtrenderer_tpu_torch.models.scenes import Submission
+    from dtrenderer_tpu_torch.utils import math3d as m3
 
-    sub = spec.submission(0.5)
-    batch = pipeline.pack_draws(sub.draws, sub.view_proj, sub.light,
-                                sub.sampling_mode, spec.width, spec.height,
-                                near_clip=sub.near_clip)
-    bins = binning.bin_triangles(batch.coef, batch.bbox, batch.valid,
-                                 spec.height, spec.width, 0, 0, rf.TILE_H,
-                                 rf.TILE_W)
+    proj = m3.perspective(np.pi / 3, width / height, 0.1, 100.0,
+                          device=device)
+    light = make_light((0.4, 0.6, 1.0), 0.15, device=device)
+    mesh = primitives.uv_sphere(n_lat, n_lon, device=device)
+    mdl = m3.model_matrix((0, 0, -3.0), m3.rotate_y(0.4, device=device), 1.4,
+                          device=device)
+    col = (0.8, 0.5, 0.9, 0.5)
+
+    def submission(t):
+        rot = m3.rotate_y(torch.as_tensor(t, dtype=torch.float32) - 0.5,
+                          device=device)
+        return Submission(proj, [DrawSpec(mesh, m3.mat4mul(mdl, rot),
+                                          color=col, shading="gouraud")],
+                          light, "nearest", True)
+
+    def frame(color, depth, t):
+        sub = submission(t)
+        d = sub.draws[0]
+        fb = fblib.clear(fblib.Framebuffer(color, depth),
+                         [0.02, 0.02, 0.05, 1.0])
+        out = draw_mesh_ordered(fb, d.mesh, d.model, proj, light=light,
+                                color=col, shading="gouraud", engine=engine)
+        return out.color, out.depth
+
+    return Scene(f"translucent_sphere_{engine}", width, height,
+                 mesh.num_tris, frame, submission)
+
+
+def mixed_config4(spec4):
+    """Config 4's draws with the first sphere translucent (alpha 0.6) and
+    submitted between the opaque draws: opaque runs [head, cube] and
+    [sphere 2], with the translucent sphere between them."""
+    from dtrenderer_tpu_torch.ops import fb as fblib
+    from dtrenderer_tpu_torch.ops.pipeline import DrawSpec, draw_meshes
+
+    def frame(color, depth, t):
+        sub = spec4.submission(t)
+        head, cube, sphere, sphere2 = sub.draws
+        trans = DrawSpec(sphere.mesh, sphere.model,
+                         color=(0.8, 0.5, 0.9, 0.6), shading="phong")
+        fb = fblib.clear(fblib.Framebuffer(color, depth),
+                         [0.03, 0.03, 0.06, 1.0])
+        fb = draw_meshes(fb, sub.view_proj, [head, cube, trans, sphere2],
+                         light=sub.light, sampling_mode=sub.sampling_mode)
+        return fb.color, fb.depth
+
+    return Scene("config4_translucent_sphere", spec4.width, spec4.height,
+                 spec4.n_tris, frame)
+
+
+# ------------------------------------------------------- kernel vs twin
+
+
+def k1_vs_plain(spec, card):
+    """K1 for one scene: (max_abs_err, kernel ms, plain ms, bound)."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    sub, batch = pack_submission(spec)
+    bins = bin_batch(batch, spec.height, spec.width)
     args = (batch.coef, batch.payload, bins, batch.tex_lut, sub.light,
             spec.height, spec.width)
     z_k, src_k, _ = rf.render_fused(*args)
     z_p, src_p, _ = rf.render_fused_plain(*args)
     torch.cuda.synchronize()
-    counts = (bins.tile_start[1:] - bins.tile_start[:-1])
-    print(f"{spec.name} {spec.width}x{spec.height}: {batch.coef.shape[0]} "
-          f"setup rows, {bins.tri_ids.shape[0]} (tile, tri) pairs, max bin "
-          f"{int(counts.max())}")
-    err = compare(f"{spec.name} kernel vs plain twin", z_k, src_k, z_p, src_p)
-    # interleaved plain, kernel, kernel, plain
-    p1 = cuda_ms(lambda: rf.render_fused_plain(*args), 1)
-    k1 = cuda_ms(lambda: rf.render_fused(*args), 20)
-    k2 = cuda_ms(lambda: rf.render_fused(*args), 20)
-    p2 = cuda_ms(lambda: rf.render_fused_plain(*args), 1)
-    k_ms, p_ms = min(k1, k2), min(p1, p2)
-    print(f"{spec.name}: kernel {k_ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
-          f"twin {p_ms:.4f} ms ({p1:.4f}, {p2:.4f}) [{card}]")
-    return err, k_ms, p_ms
+    bin_report(f"K1 {spec.name} {spec.width}x{spec.height}", batch, bins)
+    err = compare(f"K1 {spec.name} kernel vs plain twin", z_k, src_k, z_p,
+                  src_p)
+    k_ms, p_ms, r = interleaved_ms(lambda: rf.render_fused(*args),
+                                   lambda: rf.render_fused_plain(*args), 20)
+    # the winners' flags decide the shading work (K2 gives the winners)
+    _, tri = rp.rasterize_pallas_plain(batch.coef, bins, spec.height,
+                                       spec.width)
+    ops = (edge_pixels(batch.bbox, bins, spec.width) * EDGE_OPS
+           + int((tri >= 0).sum()) * BARY_Z_OPS
+           + shade_ops(batch.payload[tri[tri >= 0].long(), 3]))
+    n_bytes = nbytes(batch.coef, batch.payload, bins.tile_start,
+                     bins.tri_ids, batch.tex_lut, z_k, src_k)
+    b = bound(n_bytes, ops)
+    print(f"K1 {spec.name}: kernel {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), "
+          f"plain twin {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), bound "
+          f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops) "
+          f"[{card}]")
+    return err, k_ms, p_ms, b
 
 
-def main_path(spec, frames: int, card):
-    """Phase 4 for one scene: `frames` frames through spec.frame, each timed
-    on the host clock up to a synchronise; checks every frame's output."""
+def k2_vs_plain(spec, card):
+    """K2 on each draw of one scene (the main path launches it once per
+    draw): (max |z diff|, summed kernel ms, summed plain ms, bound)."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops import pipeline
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    sub = spec.submission(0.5)
+    k_ms = p_ms = err = 0.0
+    n_bytes = n_ops = 0
+    for i, d in enumerate(sub.draws):
+        batch = pipeline.pack_draws([d], sub.view_proj, sub.light,
+                                    sub.sampling_mode, spec.width,
+                                    spec.height, near_clip=sub.near_clip)
+        bins = bin_batch(batch, spec.height, spec.width)
+        args = (batch.coef, bins, spec.height, spec.width)
+        z_k, t_k = rp.rasterize_bins(*args)
+        z_p, t_p = rp.rasterize_pallas_plain(*args)
+        torch.cuda.synchronize()
+        tag = f"K2 {spec.name} draw {i}"
+        bin_report(tag, batch, bins)
+        if not torch.equal(z_k.view(torch.int32), z_p.view(torch.int32)):
+            raise AssertionError(f"{tag}: z differs at "
+                                 f"{int((z_k != z_p).sum())} pixels")
+        if not torch.equal(t_k, t_p):
+            raise AssertionError(f"{tag}: tri differs at "
+                                 f"{int((t_k != t_p).sum())} pixels")
+        hit = torch.isfinite(z_k)
+        if bool(hit.any()):
+            err = max(err, float((z_k[hit] - z_p[hit]).abs().max()))
+        print(f"{tag}: z bit-equal (max |diff| {err:.3g}), tri equal, "
+              f"covered px {int((t_k >= 0).sum())}")
+        k, p, r = interleaved_ms(lambda: rp.rasterize_bins(*args),
+                                 lambda: rp.rasterize_pallas_plain(*args), 20)
+        print(f"{tag}: kernel {k:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), plain "
+              f"twin {p:.4f} ms ({r[0]:.4f}, {r[3]:.4f}) [{card}]")
+        k_ms, p_ms = k_ms + k, p_ms + p
+        n_bytes += nbytes(batch.coef, bins.tile_start, bins.tri_ids, z_k,
+                          t_k)
+        n_ops += (edge_pixels(batch.bbox, bins, spec.width) * EDGE_OPS
+                  + int((t_k >= 0).sum()) * BARY_Z_OPS)
+    b = bound(n_bytes, n_ops)
+    print(f"K2 {spec.name}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms "
+          f"over {len(sub.draws)} draw(s), bound {b[0]:.4f} ms by {b[1]} "
+          f"({n_bytes} bytes, {n_ops} f32 ops) [{card}]")
+    return err, k_ms, p_ms, b
+
+
+def k3_vs_plain(scene, card):
+    """K3 at the translucent sphere: (max |colour diff|, kernel ms, plain
+    ms, bound)."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops import fb as fblib
+    from dtrenderer_tpu_torch.ops import raster_ordered as ro
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    sub, batch = pack_submission(scene)
+    bins = bin_batch(batch, scene.height, scene.width)
+    fb = fblib.clear(fblib.create(scene.height, scene.width,
+                                  batch.coef.device), [0.02, 0.02, 0.05, 1.0])
+    args = (batch.coef, batch.payload, bins, batch.tex_lut, sub.light,
+            fb.color, fb.depth, scene.height, scene.width)
+    c_k, d_k = ro.render_ordered_bins(*args)
+    c_p, d_p = ro.render_ordered_plain(*args)
+    torch.cuda.synchronize()
+    bin_report(f"K3 {scene.name} {scene.width}x{scene.height}", batch, bins)
+    err = compare(f"K3 {scene.name} kernel vs plain twin", d_k, c_k, d_p,
+                  c_p)
+    k_ms, p_ms, r = interleaved_ms(lambda: ro.render_ordered_bins(*args),
+                                   lambda: ro.render_ordered_plain(*args), 20)
+    covered = int(torch.isfinite(d_k).sum())
+    # each covered pixel is shaded and blended at least once (a lower
+    # bound: where layers stack, once per layer)
+    ops = (edge_pixels(batch.bbox, bins, scene.width) * EDGE_OPS
+           + covered * (BARY_Z_OPS + BLEND_OPS)
+           + shade_ops(batch.payload[:1, 3].expand(covered)))
+    n_bytes = nbytes(batch.coef, batch.payload, bins.tile_start,
+                     bins.tri_ids, batch.tex_lut, fb.color, fb.depth, c_k,
+                     d_k)
+    b = bound(n_bytes, ops)
+    print(f"K3 {scene.name}: kernel {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), "
+          f"plain twin {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), bound "
+          f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops) "
+          f"[{card}]")
+    return err, k_ms, p_ms, b
+
+
+# ------------------------------------------------------------- main paths
+
+
+def reset_counts():
+    from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
+    from dtrenderer_tpu_torch.ops import render_fused
+
+    render_fused.KERNEL_LAUNCHES = 0
+    raster_pallas.KERNEL_LAUNCHES = 0
+    raster_ordered.KERNEL_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
+    from dtrenderer_tpu_torch.ops import render_fused
+
+    return {"K1": render_fused.KERNEL_LAUNCHES,
+            "K2": raster_pallas.KERNEL_LAUNCHES,
+            "K3": raster_ordered.KERNEL_LAUNCHES}
+
+
+def frames(scene, n: int, card, tag: str):
+    """n frames through scene.frame, each timed on the host clock up to a
+    synchronise; checks every frame's output."""
     import torch
 
     from dtrenderer_tpu_torch.ops import fb as fblib
 
-    dev = torch.device("cuda", 0)
-    fb0 = fblib.create(spec.height, spec.width, dev)
+    dev = torch.device(DEVICE)
+    fb0 = fblib.create(scene.height, scene.width, dev)
     times = []
-    for i in range(frames):
+    for i in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        color, depth = spec.frame(fb0.color, fb0.depth, 0.5 + 0.1 * i)
+        color, depth = scene.frame(fb0.color, fb0.depth, 0.5 + 0.1 * i)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         covered = int(torch.isfinite(depth).sum())
         if covered <= 0:
-            raise AssertionError(f"{spec.name} frame {i}: nothing covered")
+            raise AssertionError(f"{scene.name} frame {i}: nothing covered")
         if not (bool(torch.isfinite(color).all())
-                and color.shape == (spec.height, spec.width, 4)):
-            raise AssertionError(f"{spec.name} frame {i}: bad colour plane")
+                and color.shape == (scene.height, scene.width, 4)):
+            raise AssertionError(f"{scene.name} frame {i}: bad colour plane")
     dt = min(times)
-    print(f"{spec.name} main path: ms/frame "
+    print(f"{tag} main path: ms/frame "
           f"{', '.join(f'{t * 1e3:.3f}' for t in times)} (best "
           f"{dt * 1e3:.3f}), {covered / dt / 1e6:.1f} shaded Mpix/s, "
-          f"{spec.n_tris / dt / 1e6:.2f} Mtris/s, covered px {covered} "
+          f"{scene.n_tris / dt / 1e6:.2f} Mtris/s, covered px {covered} "
           f"[{card}]")
 
 
-def stage_breakdown(spec, card):
-    """Where one frame's time goes: each main-path stage timed on the host
-    clock up to a synchronise (run after the counted main-path window)."""
+def main_path(tag, runs, want: dict, card) -> dict:
+    """Drive runs = [(scene, n_frames)] with every launch count set to 0
+    just before and read just after; the counts must equal `want`."""
+    reset_counts()
+    for scene, n in runs:
+        frames(scene, n, card, f"{tag}: {scene.name}")
+    got = read_counts()
+    if got != want:
+        raise AssertionError(f"{tag}: kernel launches {got}, want {want}")
+    print(f"{tag}: kernel launches {got}")
+    return got
+
+
+# ---------------------------------------------------------- stage breakdown
+
+
+def timed(fn):
     import torch
 
-    from dtrenderer_tpu_torch.ops import binning, pipeline, render_fused as rf
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def stages_fused(spec, card):
+    """One fused frame's stages (vertex stage + packing, binning, K1,
+    merge), host clock up to a synchronise."""
+    import torch
+
     from dtrenderer_tpu_torch.ops import fb as fblib
+    from dtrenderer_tpu_torch.ops import render_fused as rf
     from dtrenderer_tpu_torch.utils.color import blend_over
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    dev = torch.device("cuda", 0)
-    fb = fblib.create(spec.height, spec.width, dev)
-    sub = spec.submission(0.5)
-    batch, t_vert = timed(lambda: pipeline.pack_draws(
-        sub.draws, sub.view_proj, sub.light, sub.sampling_mode, spec.width,
-        spec.height, near_clip=sub.near_clip))
-    bins, t_bin = timed(lambda: binning.bin_triangles(
-        batch.coef, batch.bbox, batch.valid, spec.height, spec.width, 0, 0,
-        rf.TILE_H, rf.TILE_W))
+    fb = fblib.create(spec.height, spec.width, torch.device(DEVICE))
+    (sub, batch), t_vert = timed(lambda: pack_submission(spec))
+    bins, t_bin = timed(lambda: bin_batch(batch, spec.height, spec.width))
     (z, src, _), t_k = timed(lambda: rf.render_fused(
         batch.coef, batch.payload, bins, batch.tex_lut, sub.light,
         spec.height, spec.width))
     _, t_merge = timed(lambda: (torch.where(
         (z < fb.depth)[..., None], blend_over(src, fb.color), fb.color),
         torch.where(z < fb.depth, z, fb.depth)))
-    print(f"{spec.name} stages (ms): vertex+pack {t_vert:.3f}, binning "
+    print(f"{spec.name} fused stages (ms): vertex+pack {t_vert:.3f}, binning "
           f"{t_bin:.3f}, render_fused {t_k:.3f}, merge {t_merge:.3f} [{card}]")
 
 
+def stages_pallas(spec, card):
+    """One backend="pallas" draw's stages (vertex stage, binning, K2,
+    shade_deferred), per draw of the scene."""
+    import torch
+
+    from dtrenderer_tpu_torch.models.primitives import white_texture
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.utils.math3d import mat4mul
+
+    dev = torch.device(DEVICE)
+    fb = fblib.create(spec.height, spec.width, dev)
+    sub = spec.submission(0.5)
+    tot = [0.0] * 4
+    for d in sub.draws:
+        (setup, attrs), t_vert = timed(lambda: pipeline.prepare_draw(
+            d.mesh, d.model, sub.view_proj, mat4mul(sub.view_proj, d.model),
+            d.model, sub.light, d.color, d.shading, spec.width, spec.height,
+            True, sub.near_clip))
+        bins, t_bin = timed(lambda: bin_batch(setup, spec.height,
+                                              spec.width))
+        (z, tri), t_k = timed(lambda: rp.rasterize_bins(
+            setup.coef, bins, spec.height, spec.width))
+        tex = d.texture if d.texture is not None else white_texture(
+            device=dev)
+        fb, t_sh = timed(lambda: pipeline.shade_deferred(
+            fb, z, tri, setup.coef, attrs, tex, sub.sampling_mode, d.shading,
+            sub.light))
+        tot = [a + b for a, b in zip(tot, (t_vert, t_bin, t_k, t_sh))]
+    print(f"{spec.name} pallas stages (ms, {len(sub.draws)} draw(s)): vertex "
+          f"{tot[0]:.3f}, binning {tot[1]:.3f}, rasterize_bins {tot[2]:.3f}, "
+          f"shade_deferred {tot[3]:.3f} [{card}]")
+
+
+def stages_ordered(scene, card):
+    """One ordered frame's stages (vertex stage + packing, binning, K3)."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops import fb as fblib
+    from dtrenderer_tpu_torch.ops import raster_ordered as ro
+
+    fb = fblib.create(scene.height, scene.width, torch.device(DEVICE))
+    (sub, batch), t_vert = timed(lambda: pack_submission(scene))
+    bins, t_bin = timed(lambda: bin_batch(batch, scene.height, scene.width))
+    _, t_k = timed(lambda: ro.render_ordered_bins(
+        batch.coef, batch.payload, bins, batch.tex_lut, sub.light, fb.color,
+        fb.depth, scene.height, scene.width))
+    print(f"{scene.name} ordered stages (ms): vertex+pack {t_vert:.3f}, "
+          f"binning {t_bin:.3f}, render_ordered_bins {t_k:.3f} [{card}]")
+
+
+# --------------------------------------------------------- reference check
+
+
 def reference_check():
-    """Phase 6: small frames on the card vs the same frames on the CPU."""
+    """Small frames on the card vs the same frames on the CPU."""
     import torch
 
     from dtrenderer_tpu_torch.models import scenes
     from dtrenderer_tpu_torch.ops import fb as fblib
 
-    for make, kw in ((scenes.make_config4, dict(width=160, height=120)),
-                     (scenes.make_config5,
-                      dict(width=256, height=128, n_tris=2000))):
-        out = {}
-        for dev in (torch.device("cuda", 0), torch.device("cpu")):
+    cases = [(f"config{n} {b}", scenes.ALL_CONFIGS[n],
+              dict(width=160, height=120, backend=b))
+             for n in (1, 2, 3) for b in ("ref", "pallas", "fused")]
+    cases += [("config4 fused", scenes.make_config4,
+               dict(width=160, height=120)),
+              ("config5 fused", scenes.make_config5,
+               dict(width=256, height=128, n_tris=2000))]
+    cases += [(f"translucent sphere {e}", translucent_sphere,
+               dict(width=160, height=120, n_lat=16, n_lon=24, engine=e))
+              for e in ("tile", "scan")]
+    for tag, make, kw in cases:
+        out = []
+        for dev in (torch.device(DEVICE), torch.device("cpu")):
             spec = make(**kw, device=dev)
             fb0 = fblib.create(spec.height, spec.width, dev)
-            out[dev.type] = spec.frame(fb0.color, fb0.depth, 0.6)
-        compare(f"{spec.name} small, card vs CPU plain twin",
-                out["cuda"][1], out["cuda"][0], out["cpu"][1], out["cpu"][0])
+            out.append(spec.frame(fb0.color, fb0.depth, 0.6))
+        compare(f"{tag} {spec.width}x{spec.height}, card vs CPU",
+                out[0][1], out[0][0], out[1][1], out[1][0])
+
+
+# -------------------------------------------------------------------- main
+
+
+def build_all():
+    """One nvcc per kernel source, all started together."""
+    from dtrenderer_tpu_torch.kernels import raster_visibility, render_fused
+    from dtrenderer_tpu_torch.kernels import render_ordered
+
+    mods = (render_fused, raster_visibility, render_ordered)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+        infos = list(ex.map(lambda m: m.library()[1], mods))
+    print(f"build of {len(mods)} kernels: {time.perf_counter() - t0:.1f} s")
+    for m, info in zip(mods, infos):
+        print(f"  {m.SOURCE}: {info.seconds:.1f} s (cached={info.cached})")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
+    return mods
 
 
 def main() -> int:
@@ -219,56 +620,74 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from dtrenderer_tpu_torch.kernels import render_fused as k1
     from dtrenderer_tpu_torch.models import scenes
     from dtrenderer_tpu_torch.ops import render_fused as rf
 
-    t0 = time.perf_counter()
-    _, info = k1.library()
-    print(f"build render_fused.cu: {time.perf_counter() - t0:.1f} s "
-          f"(cached={info.cached})")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    if k1.tile_shape() != (rf.TILE_H, rf.TILE_W):
-        raise AssertionError(f"kernel tile {k1.tile_shape()} != "
-                             f"{(rf.TILE_H, rf.TILE_W)}")
+    for m in build_all():
+        if m.tile_shape() != (rf.TILE_H, rf.TILE_W):
+            raise AssertionError(f"{m.SOURCE} tile {m.tile_shape()} != "
+                                 f"{(rf.TILE_H, rf.TILE_W)}")
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE)
     t0 = time.perf_counter()
     cfg4 = scenes.make_config4(device=dev)
     cfg5 = scenes.make_config5(device=dev)
+    cfg4p = scenes.make_config4(backend="pallas", device=dev)
+    cfg5p = scenes.make_config5(backend="pallas", device=dev)
+    sphere = translucent_sphere(1920, 1080, dev)
+    mixed = mixed_config4(cfg4)
     print(f"scene set-up {time.perf_counter() - t0:.1f} s: config 4 "
-          f"{cfg4.n_tris} tris, config 5 {cfg5.n_tris} tris")
+          f"{cfg4.n_tris} tris, config 5 {cfg5.n_tris} tris, translucent "
+          f"sphere {sphere.n_tris} tris")
 
-    err4, ms4, plain4 = kernel_vs_plain(cfg4, card)
-    err5, ms5, plain5 = kernel_vs_plain(cfg5, card)
+    k1_4 = k1_vs_plain(cfg4, card)
+    k1_5 = k1_vs_plain(cfg5, card)
+    k2_5 = k2_vs_plain(cfg5p, card)
+    k2_4 = k2_vs_plain(cfg4p, card)
+    k3 = k3_vs_plain(sphere, card)
 
-    rf.KERNEL_LAUNCHES = 0
-    main_path(cfg4, 3, card)
-    main_path(cfg5, 2, card)
-    launches = rf.KERNEL_LAUNCHES
-    if launches != 5:
-        raise AssertionError(f"main path launched K1 {launches} times for 5 "
-                             f"frames (want one per frame)")
-    print(f"K1 launches on the main path: {launches} for 5 frames")
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    paths = [
+        ("K1 path", [(cfg4, 3), (cfg5, 2)], {"K1": 5, "K2": 0, "K3": 0}),
+        ("K2 path config 5", [(cfg5p, 2)], {"K1": 0, "K2": 2, "K3": 0}),
+        ("K2 path config 4", [(cfg4p, 2)], {"K1": 0, "K2": 8, "K3": 0}),
+        ("K3 path", [(sphere, 3)], {"K1": 0, "K2": 0, "K3": 3}),
+        ("mixed path", [(mixed, 2)], {"K1": 4, "K2": 0, "K3": 2}),
+    ]
+    for tag, runs, want in paths:
+        for k, n in main_path(tag, runs, want, card).items():
+            launches[k] += n
 
-    stage_breakdown(cfg4, card)
-    stage_breakdown(cfg5, card)
+    stages_fused(cfg4, card)
+    stages_fused(cfg5, card)
+    stages_pallas(cfg4p, card)
+    stages_pallas(cfg5p, card)
+    stages_ordered(sphere, card)
     reference_check()
 
-    report = {"kernels": [{
-        "name": "render_fused",
-        "route": "cuda",
-        "source": "dtrenderer_tpu_torch/csrc/render_fused.cu",
-        "replaces": "dtrenderer_tpu/ops/render_fused.py:269",
-        "launches": launches,
-        "max_abs_err": max(err4, err5),
-        "ms": ms5,
-        "plain_ms": plain5,
-        "ms_config4_1080p": ms4,
-        "plain_ms_config4_1080p": plain4,
-    }]}
+    def entry(name, source, replaces, key, res, **extra):
+        err, ms, plain_ms, (bound_ms, bound_by) = res
+        return {"name": name, "route": "cuda",
+                "source": f"dtrenderer_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, **extra}
+
+    report = {"kernels": [
+        entry("render_fused", "render_fused.cu",
+              "dtrenderer_tpu/ops/render_fused.py:269", "K1",
+              (max(k1_4[0], k1_5[0]), *k1_5[1:]),
+              ms_config4_1080p=k1_4[1], plain_ms_config4_1080p=k1_4[2],
+              bound_ms_config4_1080p=k1_4[3][0]),
+        entry("raster_visibility", "raster_visibility.cu",
+              "dtrenderer_tpu/ops/raster_pallas.py:36", "K2",
+              (max(k2_4[0], k2_5[0]), *k2_5[1:]),
+              ms_config4_1080p=k2_4[1], plain_ms_config4_1080p=k2_4[2],
+              bound_ms_config4_1080p=k2_4[3][0]),
+        entry("render_ordered", "render_ordered.cu",
+              "dtrenderer_tpu/ops/raster_ordered.py:51", "K3", k3),
+    ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

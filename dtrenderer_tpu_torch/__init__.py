@@ -1,12 +1,15 @@
-"""dtrenderer_tpu_torch — the PyTorch/CUDA port of dtrenderer_tpu.
+"""dtrenderer_tpu_torch — the PyTorch/CUDA port of the JAX package.
 
 The module layout mirrors `dtrenderer_tpu/` so each counterpart is easy to
-find. Plain tensor code is eager PyTorch; the one kernel of the opaque draw
-path (the fused raster+shade kernel) is hand-written CUDA C++ for Hopper
-(`csrc/render_fused.cu`), built with nvcc at first use. Every function that
-creates tensors takes an explicit `device`. The package never imports JAX;
-the JAX package stays the reference it is tested against (FORMULAS.md holds
-the op-order contract both follow).
+find. Plain tensor code is eager PyTorch; each kernel the JAX package wrote
+in Pallas is a hand-written CUDA C++ kernel for Hopper, built with nvcc at
+first use: the fused raster+shade kernel (`csrc/render_fused.cu`), the
+visibility kernel (`csrc/raster_visibility.cu`) and the ordered translucency
+kernel (`csrc/render_ordered.cu`), which share their device code
+(`csrc/raster_common.cuh`). Every function that creates tensors takes an
+explicit `device`. The package never imports JAX; the JAX package stays the
+reference it is tested against (FORMULAS.md holds the op-order contract both
+follow).
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,15 @@
 """Bitmap loading: native decode + the color pipeline's texture prep.
 
 Port of `dtrenderer_tpu/assets/image.py`. Decoding runs in the dtr_native C++
-library (`dtrenderer_tpu.assets.native`, pure ctypes + numpy). There is no
-PIL fallback: when the native library is unavailable this raises.
+library (the port's `assets/native.py`, ctypes + numpy). There is no PIL
+fallback: when the native library is unavailable this raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dtrenderer_tpu.assets import native
+from dtrenderer_tpu_torch.assets import native
 from dtrenderer_tpu_torch.utils.color import decode_srgb_u8
 
 

@@ -1,0 +1,127 @@
+"""ctypes bindings to the dtr_native C++ asset library (OBJ parse, image
+decode).
+
+The port's own copy of the OBJ and image parts of
+`dtrenderer_tpu/assets/native.py`: the same C ABI of the committed
+`native/libdtr_native.so` (built from `native/dtr_native.cpp` with
+`make -C native`), so both packages parse and decode bit-identically. The
+font atlas binding waits for the text slice. There is no fallback: when the
+library cannot be loaded, every call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import functools
+import os
+
+import numpy as np
+
+LIB_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+    "libdtr_native.so",
+)
+
+
+class _ObjData(C.Structure):
+    _fields_ = [
+        ("positions", C.POINTER(C.c_float)),
+        ("uvs", C.POINTER(C.c_float)),
+        ("normals", C.POINTER(C.c_float)),
+        ("pos_idx", C.POINTER(C.c_int64)),
+        ("uv_idx", C.POINTER(C.c_int64)),
+        ("n_idx", C.POINTER(C.c_int64)),
+        ("n_positions", C.c_int64),
+        ("n_uvs", C.c_int64),
+        ("n_normals", C.c_int64),
+        ("n_tris", C.c_int64),
+        ("has_uv", C.c_int32),
+        ("has_n", C.c_int32),
+        ("error", C.c_char * 256),
+    ]
+
+
+class _Image(C.Structure):
+    _fields_ = [
+        ("pixels", C.POINTER(C.c_uint8)),
+        ("width", C.c_int32),
+        ("height", C.c_int32),
+        ("error", C.c_char * 256),
+    ]
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    try:
+        lib = C.CDLL(LIB_PATH)
+    except OSError as e:
+        raise ImportError(
+            f"cannot load {LIB_PATH} ({e}); build it with `make -C native`"
+        ) from e
+    lib.dtr_obj_parse_file.restype = C.POINTER(_ObjData)
+    lib.dtr_obj_parse_file.argtypes = [C.c_char_p]
+    lib.dtr_obj_free.argtypes = [C.POINTER(_ObjData)]
+    lib.dtr_image_decode.restype = C.POINTER(_Image)
+    lib.dtr_image_decode.argtypes = [C.c_char_p, C.c_int64]
+    lib.dtr_image_free.argtypes = [C.POINTER(_Image)]
+    return lib
+
+
+def _copy(ptr, count, dtype):
+    if count == 0:
+        return np.zeros(0, dtype)
+    return np.ctypeslib.as_array(ptr, shape=(count,)).astype(dtype, copy=True)
+
+
+def parse_obj_file(path: str):
+    """Native OBJ parse -> (positions [Nv,3], uvs [Nt,2] or None, normals
+    [Nn,3] or None, pos_idx [T,3], uv_idx [T,3] or None, n_idx [T,3] or
+    None), the tuple of assets.obj.parse_obj_text."""
+    lib = _lib()
+    dp = lib.dtr_obj_parse_file(path.encode())
+    d = dp.contents
+    try:
+        err = d.error.decode()
+        if err:
+            raise IOError(f"dtr_native obj: {err}")
+        positions = _copy(d.positions, d.n_positions * 3, np.float32).reshape(-1, 3)
+        uvs = _copy(d.uvs, d.n_uvs * 2, np.float32).reshape(-1, 2)
+        normals = _copy(d.normals, d.n_normals * 3, np.float32).reshape(-1, 3)
+        pos_idx = _copy(d.pos_idx, d.n_tris * 3, np.int64).reshape(-1, 3)
+        uv_idx = _copy(d.uv_idx, d.n_tris * 3, np.int64).reshape(-1, 3)
+        n_idx = _copy(d.n_idx, d.n_tris * 3, np.int64).reshape(-1, 3)
+        has_uv = bool(d.has_uv)
+        has_n = bool(d.has_n)
+    finally:
+        lib.dtr_obj_free(dp)
+    return (
+        positions,
+        uvs if has_uv else None,
+        normals if has_n else None,
+        pos_idx,
+        uv_idx if has_uv else None,
+        n_idx if has_n else None,
+    )
+
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """Decode BMP/TGA/PNG bytes -> RGBA u8 [H, W, 4] (top-down)."""
+    lib = _lib()
+    ip = lib.dtr_image_decode(data, len(data))
+    im = ip.contents
+    try:
+        err = im.error.decode()
+        if err:
+            raise IOError(f"dtr_native image: {err}")
+        arr = _copy(im.pixels, im.width * im.height * 4, np.uint8).reshape(
+            im.height, im.width, 4
+        )
+    finally:
+        lib.dtr_image_free(ip)
+    return arr
+
+
+def decode_image_file(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_image_bytes(f.read())

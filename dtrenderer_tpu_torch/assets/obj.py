@@ -1,10 +1,9 @@
 """Wavefront OBJ loading.
 
 Port of `dtrenderer_tpu/assets/obj.py`. Files are parsed by the native C++
-parser through `dtrenderer_tpu.assets.native` (pure ctypes + numpy; it
-imports no JAX). Text input goes through the pure-Python parser below, a copy
-of the reference's. The result is welded into a unified vertex buffer
-(models/mesh.py).
+parser through the port's `assets/native.py` (ctypes + numpy). Text input
+goes through the pure-Python parser below, a copy of the reference's. The
+result is welded into a unified vertex buffer (models/mesh.py).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ import io
 
 import numpy as np
 
-from dtrenderer_tpu.assets import native
+from dtrenderer_tpu_torch.assets import native
 from dtrenderer_tpu_torch.models.mesh import (
     Mesh, compute_vertex_normals, make_mesh, weld,
 )
@@ -95,5 +94,5 @@ def load_obj_text(text: str, *, device) -> Mesh:
 
 def load_obj(path: str, *, device) -> Mesh:
     """Load an OBJ file with the native parser. Raises ImportError when
-    `native/libdtr_native.so` cannot be loaded or built."""
+    `native/libdtr_native.so` cannot be loaded."""
     return mesh_from_parsed(*native.parse_obj_file(path), device=device)

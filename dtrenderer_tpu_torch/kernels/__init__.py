@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `csrc/*.cu` file with a plain C interface. It is compiled
-with nvcc into a shared library at first use and loaded with ctypes. Builds
-land in `dtrenderer_tpu_torch/_build/` (listed in .gitignore), keyed by a hash
-of the source and the flags, so an edit rebuilds and an unchanged source
-loads the cached library. Nothing is built when a module is imported.
+Each kernel is one `csrc/*.cu` file with a plain C interface; device code
+the kernels share lives in `csrc/*.cuh` headers. A kernel is compiled with
+one nvcc call into a shared library at first use and loaded with ctypes.
+Builds land in `dtrenderer_tpu_torch/_build/` (listed in .gitignore), keyed
+by a hash of the source, every header and the flags, so an edit of either
+rebuilds and an unchanged tree loads the cached library. Nothing is built
+when a module is imported.
 """
 
 from __future__ import annotations
@@ -53,14 +55,24 @@ def find_nvcc() -> str:
         "kernels are compiled from csrc/ at first use")
 
 
+def source_digest(source_name: str) -> str:
+    """Hash of csrc/<source_name>, every csrc/*.cuh (any of them may be
+    included) and the flags: the key of the cached build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in (source_name, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
 def build(source_name: str) -> BuildInfo:
     """Compile csrc/<source_name> (if its cached build is missing) and
     return where the shared library is."""
     src = os.path.join(CSRC_DIR, source_name)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source_name)[0]
-    out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+    digest = source_digest(source_name)[:16]
+    out = os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
     log_path = out + ".log"
     if os.path.exists(out):
         log = ""

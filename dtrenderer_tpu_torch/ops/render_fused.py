@@ -37,8 +37,8 @@ P_TEXBASE, P_TW, P_TH, P_FLAGS = 0, 1, 2, 3
 P_C0 = 4            # corner0 base channel
 CORNER_STRIDE = 10  # q, u*q, v*q, rgba*q (4), n*q (3)
 
-# The kernel's tile (csrc/render_fused.cu kTileH/kTileW); bins for a kernel
-# launch are made with this tile.
+# The tile of the port's three kernels (csrc/raster_common.cuh kTileH/kTileW);
+# bins for a kernel launch are made with this tile.
 TILE_H = 16
 TILE_W = 16
 
@@ -89,17 +89,23 @@ def make_texture_lut(textures):
     return torch.cat(rows, dim=0).to(F32).contiguous(), meta
 
 
-def _check(coef, payload, bins: Bins, tex_lut, light: Light, height, width):
+def check_inputs(coef, bins: Bins, height: int, width: int, payload=None,
+                 tex_lut=None, light: Light | None = None, **planes):
+    """Shapes, types and devices of a kernel call's inputs (shared by the
+    three kernels' wrappers); `planes` are extra tensors that must sit on
+    coef's device (framebuffer planes)."""
     device = coef.device
     T = coef.shape[0]
     if coef.dtype != F32 or coef.shape != (T, SETUP_CHANNELS):
         raise ValueError(f"coef must be f32 [T, 16], got {coef.dtype} "
                          f"{tuple(coef.shape)}")
-    if payload.dtype != F32 or payload.shape != (T, PAYLOAD_CHANNELS):
+    if payload is not None and (payload.dtype != F32 or
+                                payload.shape != (T, PAYLOAD_CHANNELS)):
         raise ValueError(f"payload must be f32 [{T}, {PAYLOAD_CHANNELS}], got "
                          f"{payload.dtype} {tuple(payload.shape)}")
-    if tex_lut.dtype != F32 or tex_lut.dim() != 2 or tex_lut.shape[1] != 4 \
-            or tex_lut.shape[0] < 1:
+    if tex_lut is not None and (tex_lut.dtype != F32 or tex_lut.dim() != 2
+                                or tex_lut.shape[1] != 4
+                                or tex_lut.shape[0] < 1):
         raise ValueError(f"tex_lut must be f32 [L>=1, 4], got "
                          f"{tex_lut.dtype} {tuple(tex_lut.shape)}")
     n_tiles = (-(-height // bins.tile_h)) * (-(-width // bins.tile_w))
@@ -107,12 +113,46 @@ def _check(coef, payload, bins: Bins, tex_lut, light: Light, height, width):
             bins.tile_start.dtype != I32 or bins.tri_ids.dtype != I32:
         raise ValueError("bins do not match this frame size (re-bin with "
                          "binning.bin_triangles for the same height/width)")
-    for name, t in (("payload", payload), ("tile_start", bins.tile_start),
-                    ("tri_ids", bins.tri_ids), ("tex_lut", tex_lut),
-                    ("light.direction", light.direction),
-                    ("light.ambient", light.ambient)):
-        if t.device != device:
+    named = dict(tile_start=bins.tile_start, tri_ids=bins.tri_ids,
+                 payload=payload, tex_lut=tex_lut, **planes)
+    if light is not None:
+        named.update({"light.direction": light.direction,
+                      "light.ambient": light.ambient})
+    for name, t in named.items():
+        if t is not None and t.device != device:
             raise ValueError(f"{name} is on {t.device}, coef on {device}")
+
+
+def kernel_device(name: str, coef, bins: Bins, height: int) -> bool:
+    """True when a wrapper must launch its CUDA kernel, False for its plain
+    twin (a CPU tensor); raises for other devices and for inputs the
+    kernels' 16x16-tile grid does not take."""
+    if coef.device.type == "cpu":
+        return False
+    if coef.device.type != "cuda":
+        raise NotImplementedError(
+            f"{name} runs on CUDA (kernel) or CPU (plain twin), not "
+            f"{coef.device.type}")
+    if (bins.tile_h, bins.tile_w) != (TILE_H, TILE_W):
+        raise ValueError(f"the kernel needs bins of {TILE_H}x{TILE_W} tiles, "
+                         f"got {bins.tile_h}x{bins.tile_w}")
+    if -(-height // TILE_H) > 65535:
+        raise ValueError(f"height {height} exceeds the kernel's grid limit")
+    return True
+
+
+def require_aligned(**tensors):
+    """The kernels read these tensors as float4: 16-byte aligned."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"reads it as float4)")
+
+
+def light_scalars(light: Light):
+    """f32 [4]: light direction xyz, ambient (the kernels' scalars)."""
+    return torch.cat([light.direction.reshape(3).to(F32),
+                      light.ambient.reshape(1).to(F32)])
 
 
 def render_fused(coef, payload, bins: Bins, tex_lut, light: Light,
@@ -127,99 +167,112 @@ def render_fused(coef, payload, bins: Bins, tex_lut, light: Light,
     shard's origin in the frame the coefs were set up for.
     """
     global KERNEL_LAUNCHES
-    _check(coef, payload, bins, tex_lut, light, height, width)
-    if coef.device.type == "cpu":
+    check_inputs(coef, bins, height, width, payload, tex_lut, light)
+    if not kernel_device("render_fused", coef, bins, height):
         return render_fused_plain(coef, payload, bins, tex_lut, light,
                                   height, width, y_offset, x_offset)
-    if coef.device.type != "cuda":
-        raise NotImplementedError(
-            f"render_fused runs on CUDA (kernel) or CPU (plain twin), not "
-            f"{coef.device.type}")
     from dtrenderer_tpu_torch.kernels import render_fused as k1
 
-    if (bins.tile_h, bins.tile_w) != (TILE_H, TILE_W):
-        raise ValueError(f"the kernel needs bins of {TILE_H}x{TILE_W} tiles, "
-                         f"got {bins.tile_h}x{bins.tile_w}")
-    if -(-height // TILE_H) > 65535:
-        raise ValueError(f"height {height} exceeds the kernel's grid limit")
     coef = coef.contiguous()
-    payload = payload.contiguous()
     tex_lut = tex_lut.contiguous()
-    if coef.data_ptr() % 16 or tex_lut.data_ptr() % 16:
-        raise ValueError("coef and tex_lut must be 16-byte aligned (the "
-                         "kernel reads them as float4)")
-    scalars = torch.cat([light.direction.reshape(3).to(F32),
-                         light.ambient.reshape(1).to(F32)])
+    require_aligned(coef=coef, tex_lut=tex_lut)
     z = torch.empty((height, width), dtype=F32, device=coef.device)
     src = torch.empty((height, width, 4), dtype=F32, device=coef.device)
     with torch.cuda.device(coef.device):
-        k1.launch(coef, payload, bins.tile_start.contiguous(),
-                  bins.tri_ids.contiguous(), tex_lut, scalars, z, src,
-                  height, width, int(y_offset), int(x_offset))
+        k1.launch(coef, payload.contiguous(), bins.tile_start.contiguous(),
+                  bins.tri_ids.contiguous(), tex_lut, light_scalars(light), z,
+                  src, height, width, int(y_offset), int(x_offset))
     KERNEL_LAUNCHES += 1
     return z, src, bins.overflow
 
 
-def render_fused_plain(coef, payload, bins: Bins, tex_lut, light: Light,
-                       height: int, width: int, y_offset: int = 0,
-                       x_offset: int = 0):
-    """The kernel's plain-torch twin: same inputs, same outputs, same op
-    order. Phase 1 pads the CSR lists to [n_tiles, max_count] and loops over
-    the slot index, vectorised over all tiles x tile pixels; phase 2 shades
-    every covered pixel at once by gathering its winner's payload."""
-    device = coef.device
-    th_, tw_ = bins.tile_h, bins.tile_w
-    n_ty, n_tx = -(-height // th_), -(-width // tw_)
-    n_tiles = n_ty * n_tx
-    P = th_ * tw_
+# ---------------------------------------------------------------- plain twins
+# Shared by the plain twins of the three kernels (this module's, and those of
+# ops/raster_pallas.py and ops/raster_ordered.py): per-tile arrays are
+# [n_tiles, P] with tiles row-major and P = tile_h * tile_w pixels row-major
+# within a tile, the kernels' block and thread order.
 
-    # pixel centres per (tile, tile pixel), tiles row-major
+
+def tile_pixel_centres(bins: Bins, height: int, width: int, y_offset: int,
+                       x_offset: int, device):
+    """Pixel centres (px, py), f32 [n_tiles, P], of every tile pixel in
+    frame coordinates."""
+    th_, tw_ = bins.tile_h, bins.tile_w
+    n_tx = -(-width // tw_)
+    n_tiles = (-(-height // th_)) * n_tx
+    P = th_ * tw_
     ly = torch.arange(P, device=device) // tw_
     lx = torch.arange(P, device=device) % tw_
     ty = torch.arange(n_tiles, device=device) // n_tx
     tx = torch.arange(n_tiles, device=device) % n_tx
-    gy = ty[:, None] * th_ + ly[None, :]                     # [n_tiles, P]
+    gy = ty[:, None] * th_ + ly[None, :]
     gx = tx[:, None] * tw_ + lx[None, :]
-    py = (gy + y_offset).to(F32) + 0.5
-    px = (gx + x_offset).to(F32) + 0.5
+    return ((gx + x_offset).to(F32) + 0.5, (gy + y_offset).to(F32) + 0.5)
 
-    # ---- phase 1: (min z, min id) winner, slot by slot ----
+
+def tiles_to_image(a, bins: Bins, height: int, width: int):
+    """[n_tiles, P, ...] -> [H, W, ...] (ragged edge tiles cropped)."""
+    th_, tw_ = bins.tile_h, bins.tile_w
+    n_ty, n_tx = -(-height // th_), -(-width // tw_)
+    rest = a.shape[2:]
+    a = a.reshape(n_ty, n_tx, th_, tw_, *rest).transpose(1, 2)
+    return a.reshape(n_ty * th_, n_tx * tw_, *rest)[:height, :width]
+
+
+def image_to_tiles(img, bins: Bins, fill: float):
+    """[H, W, ...] -> [n_tiles, P, ...], ragged edge tiles padded with
+    `fill`."""
+    th_, tw_ = bins.tile_h, bins.tile_w
+    height, width = img.shape[0], img.shape[1]
+    n_ty, n_tx = -(-height // th_), -(-width // tw_)
+    rest = img.shape[2:]
+    pad = torch.full((n_ty * th_, n_tx * tw_, *rest), fill, dtype=img.dtype,
+                     device=img.device)
+    pad[:height, :width] = img
+    pad = pad.reshape(n_ty, th_, n_tx, tw_, *rest).transpose(1, 2)
+    return pad.reshape(n_ty * n_tx, th_ * tw_, *rest)
+
+
+def binned_slots(bins: Bins):
+    """Yields (has bool [n_tiles], ids i64 [n_tiles]) for slot s = 0, 1, ...
+    of every tile's CSR list: the tile's s-th triangle id (ascending ids),
+    where it has one."""
     starts = bins.tile_start.to(torch.int64)
     counts = starts[1:] - starts[:-1]
-    max_count = int(counts.max()) if n_tiles else 0
-    bz = torch.full((n_tiles, P), float("inf"), dtype=F32, device=device)
-    bid = torch.full((n_tiles, P), torch.iinfo(I32).max, dtype=I32,
-                     device=device)
-    bb = [torch.zeros((n_tiles, P), dtype=F32, device=device)
-          for _ in range(3)]
+    max_count = int(counts.max()) if counts.numel() else 0
     n_pairs = bins.tri_ids.shape[0]
     for s in range(max_count):
         has = s < counts
         slot = torch.clamp(starts[:-1] + s, max=n_pairs - 1)
-        ids = torch.where(has, bins.tri_ids[slot], 0)
-        inside, z, b = coverage_and_depth(coef[ids.to(torch.int64)][:, None, :],
-                                          px, py)
-        ids = ids[:, None]
+        yield has, torch.where(has, bins.tri_ids[slot], 0).to(torch.int64)
+
+
+def winner_plain(coef, bins: Bins, height: int, width: int, y_offset: int,
+                 x_offset: int):
+    """The visibility phase of the kernels, slot by slot, vectorised over
+    all tiles x tile pixels: per pixel the (min z, min id) winner of the
+    tile's binned triangles. Returns (z f32, id i32 (INT_MAX where
+    uncovered), (b0, b1, b2) f32), each [n_tiles, P]."""
+    device = coef.device
+    px, py = tile_pixel_centres(bins, height, width, y_offset, x_offset,
+                                device)
+    bz = torch.full(px.shape, float("inf"), dtype=F32, device=device)
+    bid = torch.full(px.shape, torch.iinfo(I32).max, dtype=I32, device=device)
+    bb = [torch.zeros(px.shape, dtype=F32, device=device) for _ in range(3)]
+    for has, ids in binned_slots(bins):
+        inside, z, b = coverage_and_depth(coef[ids][:, None, :], px, py)
+        ids = ids.to(I32)[:, None]
         take = inside & has[:, None] & ((z < bz) | ((z == bz) & (ids < bid)))
         bz = torch.where(take, z, bz)
         bid = torch.where(take, ids, bid)
         bb = [torch.where(take, bn, bo) for bn, bo in zip(b, bb)]
+    return bz, bid, bb
 
-    def to_image(a):  # [n_tiles, P, ...] -> [H, W, ...]
-        rest = a.shape[2:]
-        a = a.reshape(n_ty, n_tx, th_, tw_, *rest).transpose(1, 2)
-        return a.reshape(n_ty * th_, n_tx * tw_, *rest)[:height, :width]
 
-    z_img = to_image(bz)
-    covered = z_img != float("inf")
-    src = torch.zeros((height, width, 4), dtype=F32, device=device)
-    win = to_image(bid)[covered].to(torch.int64)
-    if win.numel() == 0:
-        return z_img.contiguous(), src, bins.overflow
-    b0, b1, b2 = (to_image(x)[covered] for x in bb)
-
-    # ---- phase 2: shade the covered pixels ----
-    p = payload[win]                                           # [N, 34]
+def shade_plain(p, b, tex_lut, light: Light):
+    """The kernels' shading of N fragments: payload rows p [N, 34] and
+    barycentrics b = (b0, b1, b2), each [N] -> premultiplied src [N, 4]."""
+    b0, b1, b2 = b
 
     def interp(off):
         return bary_interp((b0, b1, b2), p[:, P_C0 + off],
@@ -269,5 +322,21 @@ def render_fused_plain(coef, payload, bins: Bins, tex_lut, light: Light,
     term = light.ambient + (1.0 - light.ambient) * torch.clamp_min(ndl, 0.0)
     phong = torch.fmod(flags, 2.0) > 0
     lit = torch.cat([shaded[:, :3] * term[:, None], shaded[:, 3:]], dim=1)
-    src[covered] = torch.where(phong[:, None], lit, shaded)
-    return z_img.contiguous(), src, bins.overflow
+    return torch.where(phong[:, None], lit, shaded)
+
+
+def render_fused_plain(coef, payload, bins: Bins, tex_lut, light: Light,
+                       height: int, width: int, y_offset: int = 0,
+                       x_offset: int = 0):
+    """The kernel's plain-torch twin: same inputs, same outputs, same op
+    order. Phase 1 is winner_plain; phase 2 shades every covered pixel at
+    once by gathering its winner's payload."""
+    bz, bid, bb = winner_plain(coef, bins, height, width, y_offset, x_offset)
+    z_img = tiles_to_image(bz, bins, height, width).contiguous()
+    covered = z_img != float("inf")
+    src = torch.zeros((height, width, 4), dtype=F32, device=coef.device)
+    win = tiles_to_image(bid, bins, height, width)[covered].to(torch.int64)
+    if win.numel():
+        b = tuple(tiles_to_image(x, bins, height, width)[covered] for x in bb)
+        src[covered] = shade_plain(payload[win], b, tex_lut, light)
+    return z_img, src, bins.overflow

@@ -1,0 +1,53 @@
+"""Texture sampling on a [th, tw, 4] texture: nearest and bilinear gathers.
+
+Port of `dtrenderer_tpu/ops/sampling.py`; FORMULAS.md "Texture sampling"
+(clamp-to-edge, v up). Op order as the reference: floor, cast to int32, then
+clip in int.
+"""
+
+from __future__ import annotations
+
+import torch
+
+I32 = torch.int32
+
+
+def sample_nearest(tex, u, v):
+    """tex f32 [th, tw, 4]; u, v f32 of one shape -> [..., 4]."""
+    th, tw = tex.shape[0], tex.shape[1]
+    tx = torch.clamp(torch.floor(u * float(tw)).to(I32), 0, tw - 1)
+    ty = torch.clamp(torch.floor((1.0 - v) * float(th)).to(I32), 0, th - 1)
+    return tex[ty.long(), tx.long()]
+
+
+def _lerp2(a, b, t):
+    return a + (b - a) * t
+
+
+def sample_bilinear(tex, u, v):
+    th, tw = tex.shape[0], tex.shape[1]
+    fx = u * float(tw) - 0.5
+    fy = (1.0 - v) * float(th) - 0.5
+    x0f = torch.floor(fx)
+    y0f = torch.floor(fy)
+    ax = (fx - x0f)[..., None]
+    ay = (fy - y0f)[..., None]
+    x0i = x0f.to(I32)
+    y0i = y0f.to(I32)
+    x0 = torch.clamp(x0i, 0, tw - 1).long()
+    x1 = torch.clamp(x0i + 1, 0, tw - 1).long()
+    y0 = torch.clamp(y0i, 0, th - 1).long()
+    y1 = torch.clamp(y0i + 1, 0, th - 1).long()
+    t00 = tex[y0, x0]
+    t10 = tex[y0, x1]
+    t01 = tex[y1, x0]
+    t11 = tex[y1, x1]
+    return _lerp2(_lerp2(t00, t10, ax), _lerp2(t01, t11, ax), ay)
+
+
+def sample(tex, u, v, mode: str):
+    if mode == "nearest":
+        return sample_nearest(tex, u, v)
+    if mode == "bilinear":
+        return sample_bilinear(tex, u, v)
+    raise ValueError(f"unknown sampling mode: {mode!r}")

@@ -53,6 +53,18 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 Z_REL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tier-1 run puts several pytest workers on a few cores; torch's
+    intra-op pool in each of them would oversubscribe the cores, and these
+    small eager tensors gain nothing from it. Values do not depend on the
+    thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _golden(name):
     return np.asarray(Image.open(os.path.join(GOLDEN_DIR, f"{name}.png")),
                       np.uint8)
@@ -317,20 +329,39 @@ def test_config4_port_matches_reference_render_without_bin_drops():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port imports, a config-1 frame renders on the
+    "ref" backend and a translucent draw on both ordered engines, and no
+    module of JAX or of the JAX package was loaded."""
     code = (
         "import sys\n"
         "import dtrenderer_tpu_torch\n"
         "import dtrenderer_tpu_torch.convert, dtrenderer_tpu_torch.debug\n"
         "import dtrenderer_tpu_torch.kernels.render_fused\n"
+        "import dtrenderer_tpu_torch.kernels.raster_visibility\n"
+        "import dtrenderer_tpu_torch.kernels.render_ordered\n"
+        "import dtrenderer_tpu_torch.assets.native\n"
         "import dtrenderer_tpu_torch.assets.obj, dtrenderer_tpu_torch.assets.image\n"
         "import dtrenderer_tpu_torch.models.scenes\n"
-        "import dtrenderer_tpu_torch.ops.pipeline\n"
-        "from dtrenderer_tpu_torch.models import scenes\n"
-        "from dtrenderer_tpu_torch.ops import fb\n"
+        "import dtrenderer_tpu_torch.ops.pipeline, dtrenderer_tpu_torch.ops.sampling\n"
+        "import dtrenderer_tpu_torch.ops.raster_ref, dtrenderer_tpu_torch.ops.raster_pallas\n"
+        "import dtrenderer_tpu_torch.ops.raster_ordered\n"
+        "from dtrenderer_tpu_torch.models import primitives, scenes\n"
+        "from dtrenderer_tpu_torch.ops import fb, pipeline\n"
+        "from dtrenderer_tpu_torch.utils import math3d as m3\n"
         "spec = scenes.make_config4(64, 32, device='cpu')\n"
         "spec.frame(*fb.create(32, 64, 'cpu'), 0.5)\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-        " if m.startswith('jax'))\n"
+        "spec = scenes.make_config1(64, 32, 'ref', device='cpu')\n"
+        "spec.frame(*fb.create(32, 64, 'cpu'), 0.5)\n"
+        "proj = m3.perspective(1.0, 2.0, 0.1, 10.0, device='cpu')\n"
+        "mdl = m3.translate((0, 0, -3.0), device='cpu')\n"
+        "for engine in ('tile', 'scan'):\n"
+        "    pipeline.draw_mesh_ordered(fb.create(32, 64, 'cpu'),\n"
+        "        primitives.uv_sphere(6, 8, device='cpu'), mdl, proj,\n"
+        "        color=(1, 0.5, 0.2, 0.5), engine=engine)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'dtrenderer_tpu' or m.startswith('dtrenderer_tpu.'))\n"
+        "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -344,29 +375,60 @@ def _tiny_fb():
 
 @pytest.mark.parametrize("backend", ["ref", "pallas"])
 def test_unported_backends_raise(backend):
+    """What stays unported of backend="ref"/"pallas" (both render:
+    test_torch_raster.py) are the reference's TPU binning/kernel knobs: any
+    raster_opts key raises, and leaves the framebuffer untouched."""
     proj = pm3.perspective(1.0, 1.0, 0.1, 10.0, device=CPU)
-    with pytest.raises(NotImplementedError, match=backend):
-        ppipe.draw_mesh(_tiny_fb(), pprim.cube(device=CPU),
-                        pm3.identity(device=CPU), proj, backend=backend)
+    cube, eye = pprim.cube(device=CPU), pm3.identity(device=CPU)
+    fb = _tiny_fb()
+    for opts in (dict(capacity=128), dict(tile_h=16, tile_w=256)):
+        with pytest.raises(NotImplementedError, match=next(iter(opts))):
+            ppipe.draw_mesh(fb, cube, eye, proj, backend=backend,
+                            raster_opts=opts)
+    assert torch.isinf(fb.depth).all()
 
 
 def test_translucent_draws_and_raster_opts_raise():
+    """Translucent draws render (test_torch_ordered.py); the reference's
+    TPU knobs raise: raster_opts on the fused path and draw_mesh_ordered,
+    ordered_opts on draw_meshes."""
     proj = pm3.perspective(1.0, 1.0, 0.1, 10.0, device=CPU)
     cube = pprim.cube(device=CPU)
     eye = pm3.identity(device=CPU)
-    with pytest.raises(NotImplementedError, match="draw_mesh_ordered"):
+    ppipe.draw_meshes(_tiny_fb(), proj,
+                      [ppipe.DrawSpec(cube, eye),
+                       ppipe.DrawSpec(cube, eye, color=(1, 1, 1, 0.5))])
+    with pytest.raises(NotImplementedError, match="small_span"):
         ppipe.draw_meshes(_tiny_fb(), proj,
-                          [ppipe.DrawSpec(cube, eye),
-                           ppipe.DrawSpec(cube, eye, color=(1, 1, 1, 0.5))])
-    with pytest.raises(NotImplementedError, match="draw_mesh_ordered"):
-        ppipe.draw_meshes(_tiny_fb(), proj,
-                          [ppipe.DrawSpec(cube, eye, translucent=True)])
+                          [ppipe.DrawSpec(cube, eye, translucent=True)],
+                          ordered_opts=dict(small_span=8))
     with pytest.raises(NotImplementedError, match="capacity"):
         ppipe.draw_mesh(_tiny_fb(), cube, eye, proj, backend="fused",
                         raster_opts=dict(capacity=128))
+    with pytest.raises(NotImplementedError, match="tile_h"):
+        ppipe.draw_mesh_ordered(_tiny_fb(), cube, eye, proj,
+                                raster_opts=dict(tile_h=16))
     with pytest.raises(ValueError, match="sampling"):
         ppipe.draw_mesh(_tiny_fb(), cube, eye, proj, backend="fused",
                         sampling_mode="trilinear")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda fb, m, e, p: ppipe.draw_mesh(fb, m, e, p, backend="cuda"),
+     "backend"),
+    (lambda fb, m, e, p: ppipe.draw_mesh_ordered(fb, m, e, p, engine="fast"),
+     "engine"),
+    (lambda fb, m, e, p: ppipe.draw_meshes(
+        fb, p, [ppipe.DrawSpec(m, e, translucent=True)],
+        ordered_engine="fast"), "engine"),
+    (lambda fb, m, e, p: ppipe.draw_mesh_ordered(
+        fb, m, e, p, sampling_mode="trilinear"), "sampling"),
+])
+def test_unknown_backend_engine_or_mode_raises(call, match):
+    proj = pm3.perspective(1.0, 1.0, 0.1, 10.0, device=CPU)
+    with pytest.raises(ValueError, match=match):
+        call(_tiny_fb(), pprim.cube(device=CPU), pm3.identity(device=CPU),
+             proj)
 
 
 def test_frame_counters_of_two_draws_merge():

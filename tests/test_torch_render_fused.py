@@ -43,6 +43,18 @@ SRC_ABS = 1e-4
 LIGHT = make_light((0.4, 0.6, 1.0), 0.15, device=CPU)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tier-1 run puts several pytest workers on a few cores; torch's
+    intra-op pool in each of them would oversubscribe the cores, and these
+    small eager tensors gain nothing from it. Values do not depend on the
+    thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _checker(size, cells):
     ij = np.arange(size) * cells // size
     mask = ((ij[:, None] + ij[None, :]) % 2)[..., None].astype(bool)
