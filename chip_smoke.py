@@ -19,6 +19,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
        K3 at the translucent sphere (uv_sphere(50, 52), 5,096 triangles,
          1920x1080 over a cleared framebuffer): depth bit-equal, colour max
          |diff| <= 1e-6, packed u8 within +-1 with zero outliers;
+     with K1's and K2's share of surviving coarse-stage bits per scene (of
+     every binned pair's 8 sub-block bits, those the edge functions leave
+     set: the share of per-warp edge tests the kernels still run); then K1
+     and K2 bit-equal to their twins at shapes the scenes do not reach: a
+     tile of more than 512 triangles, grids of shared edges through pixel
+     centres and along sub-block borders, each as a whole frame and as
+     ragged shards at non-zero offsets;
   4. main paths through the public entry points, each with every kernel's
      launch count set to 0 just before and read just after:
        config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
@@ -135,6 +142,18 @@ def edge_pixels(bbox, bins, width) -> int:
     h = (torch.minimum(bb[:, 3], ty0 + bins.tile_h - 1)
          - torch.maximum(bb[:, 1], ty0) + 1).clamp(min=0)
     return int((w * h).sum())
+
+
+def surviving_bits(coef, bins, height, width) -> float:
+    """Share of the coarse stage's sub-block bits that stay set over every
+    binned pair (render_fused.subblock_masks_plain, the plain twin of the
+    kernels' coarse stage): the share of per-warp edge tests K1 and K2
+    still run."""
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    masks = rf.subblock_masks_plain(coef, bins, height, width)
+    bits = sum(int(((masks >> s) & 1).sum()) for s in range(rf.SUBS))
+    return bits / max(1, rf.SUBS * masks.numel())
 
 
 def shade_ops(flags):
@@ -278,7 +297,8 @@ def mixed_config4(spec4):
 
 
 def k1_vs_plain(spec, card):
-    """K1 for one scene: (max_abs_err, kernel ms, plain ms, bound)."""
+    """K1 for one scene: (max_abs_err, kernel ms, plain ms, bound, share of
+    surviving coarse bits)."""
     import torch
 
     from dtrenderer_tpu_torch.ops import raster_pallas as rp
@@ -305,16 +325,18 @@ def k1_vs_plain(spec, card):
     n_bytes = nbytes(batch.coef, batch.payload, bins.tile_start,
                      bins.tri_ids, batch.tex_lut, z_k, src_k)
     b = bound(n_bytes, ops)
+    share = surviving_bits(batch.coef, bins, spec.height, spec.width)
     print(f"K1 {spec.name}: kernel {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), "
           f"plain twin {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), bound "
-          f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops) "
-          f"[{card}]")
-    return err, k_ms, p_ms, b
+          f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops), "
+          f"surviving coarse bits {share:.4f} [{card}]")
+    return err, k_ms, p_ms, b, share
 
 
 def k2_vs_plain(spec, card):
     """K2 on each draw of one scene (the main path launches it once per
-    draw): (max |z diff|, summed kernel ms, summed plain ms, bound)."""
+    draw): (max |z diff|, summed kernel ms, summed plain ms, bound, share of
+    surviving coarse bits over all draws' pairs)."""
     import torch
 
     from dtrenderer_tpu_torch.ops import pipeline
@@ -322,8 +344,8 @@ def k2_vs_plain(spec, card):
     from dtrenderer_tpu_torch.ops import render_fused as rf
 
     sub = spec.submission(0.5)
-    k_ms = p_ms = err = 0.0
-    n_bytes = n_ops = 0
+    k_ms = p_ms = err = kept = 0.0
+    n_bytes = n_ops = n_pairs = 0
     for i, d in enumerate(sub.draws):
         batch = pipeline.pack_draws([d], sub.view_proj, sub.light,
                                     sub.sampling_mode, spec.width,
@@ -355,11 +377,17 @@ def k2_vs_plain(spec, card):
                           t_k)
         n_ops += (edge_pixels(batch.bbox, bins, spec.width) * EDGE_OPS
                   + int((t_k >= 0).sum()) * BARY_Z_OPS)
+        pairs = bins.tri_ids.shape[0]
+        kept += pairs * surviving_bits(batch.coef, bins, spec.height,
+                                       spec.width)
+        n_pairs += pairs
     b = bound(n_bytes, n_ops)
+    share = kept / max(1, n_pairs)
     print(f"K2 {spec.name}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms "
           f"over {len(sub.draws)} draw(s), bound {b[0]:.4f} ms by {b[1]} "
-          f"({n_bytes} bytes, {n_ops} f32 ops) [{card}]")
-    return err, k_ms, p_ms, b
+          f"({n_bytes} bytes, {n_ops} f32 ops), surviving coarse bits "
+          f"{share:.4f} [{card}]")
+    return err, k_ms, p_ms, b, share
 
 
 def k3_vs_plain(scene, card):
@@ -400,6 +428,54 @@ def k3_vs_plain(scene, card):
           f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops) "
           f"[{card}]")
     return err, k_ms, p_ms, b
+
+
+def stress_vs_plain():
+    """K1 and K2 against their plain twins, bit for bit, at shapes the
+    scenes do not reach (models/stress.py): a tile of more than 512
+    triangles (three staging chunks of the walk), grids whose shared edges
+    run through pixel centres and along sub-block borders, each as a whole
+    frame and as two shards whose size is no multiple of the tile or the
+    sub-block, at non-zero offsets."""
+    import torch
+
+    from dtrenderer_tpu_torch.models import stress
+    from dtrenderer_tpu_torch.ops import binning
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.ops.shading import make_light
+
+    dev = torch.device(DEVICE)
+    light = make_light((0.4, 0.6, 1.0), 0.15, device=dev)
+    for tag, make in stress.CASES.items():
+        corners, h, w = make()
+        setup = stress.setup(corners, h, w, dev)
+        payload, lut = stress.payload(corners, 5, dev)
+        for y0, x0, bh, bw in stress.windows(h, w):
+            bins = binning.bin_triangles(setup.coef, setup.bbox, setup.valid,
+                                         bh, bw, y0, x0, rf.TILE_H, rf.TILE_W)
+            deepest = int((bins.tile_start[1:] - bins.tile_start[:-1]).max())
+            if tag == "deep_tile" and (y0, x0) == (0, 0) and deepest <= 512:
+                raise AssertionError(f"deep tile: deepest bin {deepest}")
+            z2, t2 = rp.rasterize_bins(setup.coef, bins, bh, bw, y0, x0)
+            z2p, t2p = rp.rasterize_pallas_plain(setup.coef, bins, bh, bw, y0,
+                                                 x0)
+            args = (setup.coef, payload, bins, lut, light, bh, bw, y0, x0)
+            z1, s1, _ = rf.render_fused(*args)
+            z1p, s1p, _ = rf.render_fused_plain(*args)
+            torch.cuda.synchronize()
+            where = f"stress {tag} {bw}x{bh} at ({x0}, {y0})"
+            for name, a, b in (("K2 z", z2, z2p), ("K2 tri", t2, t2p),
+                               ("K1 z", z1, z1p), ("K1 src", s1, s1p)):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(
+                        f"{where}: {name} differs at "
+                        f"{int((a != b).sum())} elements")
+            covered = int((t2 >= 0).sum())
+            if covered <= 100:
+                raise AssertionError(f"{where}: only {covered} px covered")
+            print(f"{where}: K1 and K2 bit-equal to their plain twins, "
+                  f"deepest bin {deepest}, covered px {covered}")
 
 
 # ------------------------------------------------------------- main paths
@@ -645,6 +721,7 @@ def main() -> int:
     k2_5 = k2_vs_plain(cfg5p, card)
     k2_4 = k2_vs_plain(cfg4p, card)
     k3 = k3_vs_plain(sphere, card)
+    stress_vs_plain()
 
     launches = {"K1": 0, "K2": 0, "K3": 0}
     paths = [
@@ -666,7 +743,7 @@ def main() -> int:
     reference_check()
 
     def entry(name, source, replaces, key, res, **extra):
-        err, ms, plain_ms, (bound_ms, bound_by) = res
+        err, ms, plain_ms, (bound_ms, bound_by) = res[:4]
         return {"name": name, "route": "cuda",
                 "source": f"dtrenderer_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[key],
@@ -679,12 +756,14 @@ def main() -> int:
               "dtrenderer_tpu/ops/render_fused.py:269", "K1",
               (max(k1_4[0], k1_5[0]), *k1_5[1:]),
               ms_config4_1080p=k1_4[1], plain_ms_config4_1080p=k1_4[2],
-              bound_ms_config4_1080p=k1_4[3][0]),
+              bound_ms_config4_1080p=k1_4[3][0], surviving_bits=k1_5[4],
+              surviving_bits_config4_1080p=k1_4[4]),
         entry("raster_visibility", "raster_visibility.cu",
               "dtrenderer_tpu/ops/raster_pallas.py:36", "K2",
               (max(k2_4[0], k2_5[0]), *k2_5[1:]),
               ms_config4_1080p=k2_4[1], plain_ms_config4_1080p=k2_4[2],
-              bound_ms_config4_1080p=k2_4[3][0]),
+              bound_ms_config4_1080p=k2_4[3][0], surviving_bits=k2_5[4],
+              surviving_bits_config4_1080p=k2_4[4]),
         entry("render_ordered", "render_ordered.cu",
               "dtrenderer_tpu/ops/raster_ordered.py:51", "K3", k3),
     ]}

@@ -9,18 +9,24 @@
 // vector-unit layout, and the per-triangle merge below gives the same winner.
 //
 // Design. K1's phase 1 without the barycentrics' use and without phase 2:
-// one block per 16x16 screen tile, one thread per pixel, the tile's CSR id
-// list (ascending ids, ops/binning.py) walked in chunks of 256 triangles
-// staged through shared memory, the winner (z, id) in registers. The walk is
-// raster_common.cuh walk_winner, the same code as render_fused.cu's, so the
-// two kernels pick the same winner bit for bit. Ragged edge tiles are masked
-// at the store. Uncovered pixels get z = +inf and id = -1.
+// one block per 16x16 screen tile, one thread per pixel, each of the 8 warps
+// an 8x4 pixel sub-block, the tile's CSR id list (ascending ids,
+// ops/binning.py) walked in chunks of 256 triangles staged through shared
+// memory, the winner (z, id) in registers. The walk is raster_common.cuh
+// walk_winner, the same code as render_fused.cu's, so the two kernels pick
+// the same winner bit for bit. Ragged edge tiles are masked at the store.
+// Uncovered pixels get z = +inf and id = -1.
 //
-// What bounds it on the card: edge evaluation, about 12 float ops per
-// (pixel, binned triangle) for coverage plus 8 more where the pixel is
-// inside. The outputs are 8 bytes a pixel and the inputs 64 bytes a binned
-// triangle, read once per tile through shared memory, so the kernel is
-// bound by the arithmetic of deep bins; small tiles keep the bins shallow.
+// What bounds it on the card. Walking every staged triangle in every pixel
+// was issue-bound (scheduler slots) on rejected tests, not by arithmetic:
+// about 25-30 issued ops per (pixel, binned triangle), most of them for
+// triangles that miss the pixel's neighbourhood. walk_winner now rejects per
+// warp first: the thread that stages a triangle computes which 8x4
+// sub-blocks it can cover, exactly (raster_common.cuh has the argument and
+// the registers), and a warp tests only the triangles that keep its bit,
+// about a quarter of them at config 5. The outputs are 8 bytes a pixel and
+// the inputs 64 bytes a binned triangle, read once per tile; what remains is
+// issue slots on the surviving tests and the latency of staging.
 //
 // Op order: see raster_common.cuh (built with --fmad=false).
 
@@ -30,22 +36,24 @@ using namespace dtr;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kWalkBlocksPerSM)
 raster_visibility_kernel(const float* __restrict__ coef,
                          const int* __restrict__ tile_start,
                          const int* __restrict__ tri_ids,
                          float* __restrict__ z_out, int* __restrict__ tri_out,
                          int height, int width, int y_offset, int x_offset) {
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int x = blockIdx.x * kTileW + static_cast<int>(threadIdx.x) % kTileW;
-  const int y = blockIdx.y * kTileH + static_cast<int>(threadIdx.x) / kTileW;
-  const float px = static_cast<float>(x + x_offset) + 0.5f;
-  const float py = static_cast<float>(y + y_offset) + 0.5f;
+  const int tx0 = blockIdx.x * kTileW;
+  const int ty0 = blockIdx.y * kTileH;
+  int lx, ly;
+  warp_pixel(lx, ly);
+  const int x = tx0 + lx;
+  const int y = ty0 + ly;
 
   float bz, bb0, bb1, bb2;
   int bid;
-  walk_winner(coef, tri_ids, tile_start[tile], tile_start[tile + 1], px, py,
-              bz, bid, bb0, bb1, bb2);
+  walk_winner(coef, tri_ids, tile_start[tile], tile_start[tile + 1],
+              tx0 + x_offset, ty0 + y_offset, bz, bid, bb0, bb1, bb2);
   if (x >= width || y >= height) return;
   const size_t pix = static_cast<size_t>(y) * width + x;
   z_out[pix] = bz;

@@ -15,22 +15,28 @@
 //     texture LUT (nearest, or bilinear when flags bit 1 is set), modulate by
 //     the interpolated rgba, and apply per-pixel Phong when flags bit 0 is set.
 //
-// Design. One block per 16x16 screen tile, one thread per pixel. The tile's
-// CSR id list (ascending ids, ops/binning.py) is walked in chunks of 256
-// triangles staged through shared memory (raster_common.cuh walk_winner).
-// The winner state (z, id, b0, b1, b2) lives in registers; nothing crosses
-// blocks. Phase 1 and the shading are the shared device code of
-// raster_common.cuh, which the visibility kernel (raster_visibility.cu) and
-// the ordered kernel (render_ordered.cu) use too.
+// Design. One block per 16x16 screen tile, one thread per pixel, each of the
+// 8 warps an 8x4 pixel sub-block. The tile's CSR id list (ascending ids,
+// ops/binning.py) is walked in chunks of 256 triangles staged through shared
+// memory (raster_common.cuh walk_winner): the thread that stages a triangle
+// also computes which sub-blocks it can cover, and a warp runs the per-pixel
+// edge test only for the triangles whose mask has its bit. The winner state
+// (z, id, b0, b1, b2) lives in registers; nothing crosses blocks. Phase 1 and
+// the shading are the shared device code of raster_common.cuh, which the
+// visibility kernel (raster_visibility.cu) and the ordered kernel
+// (render_ordered.cu) use too.
 //
-// What bounds it on the card. Phase 1 is per-pixel edge evaluation times the
-// bin depth: about 20 float ops per (pixel, binned triangle). Small tiles keep
-// the bin depth low (a 16x16 tile holds far fewer triangles than the TPU's
-// 32x128 tiles), and the broadcast staging keeps the triangle data out of the
-// per-pixel load path. Phase 2 is gathers: one payload row (136 bytes) per
-// covered pixel from global memory and one 16-byte texel per tap from a
-// texel-major [L, 4] LUT; neighbouring pixels mostly share a winner, so these
-// hit in L1/L2.
+// What bounds it on the card. Phase 1 was issue-bound (scheduler slots) on
+// rejected tests, not by arithmetic: every pixel ran the whole edge test
+// (about 25-30 issued ops) for every triangle of its tile's bin, although
+// most of a bin's triangles miss most of the tile. The coarse reject of
+// raster_common.cuh (its header has the design, the exactness argument and
+// the registers) leaves about a quarter of those tests at config 5; what
+// remains is issue-bound on the surviving tests plus the latency of staging
+// a tile's rows. Phase 2 is gathers: one payload row (136 bytes) per covered
+// pixel from global memory and one 16-byte texel per tap from a texel-major
+// [L, 4] LUT; neighbouring pixels mostly share a winner, so these hit in
+// L1/L2.
 //
 // Op order: see raster_common.cuh (built with --fmad=false, IEEE divide and
 // sqrt).
@@ -41,7 +47,7 @@ using namespace dtr;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kWalkBlocksPerSM)
 render_fused_kernel(const float* __restrict__ coef,
                     const float* __restrict__ payload,
                     const int* __restrict__ tile_start,
@@ -52,16 +58,18 @@ render_fused_kernel(const float* __restrict__ coef,
                     int tex_len, int height, int width, int y_offset,
                     int x_offset) {
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int x = blockIdx.x * kTileW + static_cast<int>(threadIdx.x) % kTileW;
-  const int y = blockIdx.y * kTileH + static_cast<int>(threadIdx.x) / kTileW;
-  const float px = static_cast<float>(x + x_offset) + 0.5f;
-  const float py = static_cast<float>(y + y_offset) + 0.5f;
+  const int tx0 = blockIdx.x * kTileW;
+  const int ty0 = blockIdx.y * kTileH;
+  int lx, ly;
+  warp_pixel(lx, ly);
+  const int x = tx0 + lx;
+  const int y = ty0 + ly;
 
   // ---------------------------- phase 1 ----------------------------------
   float bz, bb0, bb1, bb2;
   int bid;
-  walk_winner(coef, tri_ids, tile_start[tile], tile_start[tile + 1], px, py,
-              bz, bid, bb0, bb1, bb2);
+  walk_winner(coef, tri_ids, tile_start[tile], tile_start[tile + 1],
+              tx0 + x_offset, ty0 + y_offset, bz, bid, bb0, bb1, bb2);
   if (x >= width || y >= height) return;
   const size_t pix = static_cast<size_t>(y) * width + x;
   z_out[pix] = bz;

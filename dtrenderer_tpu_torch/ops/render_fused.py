@@ -41,6 +41,12 @@ CORNER_STRIDE = 10  # q, u*q, v*q, rgba*q (4), n*q (3)
 # bins for a kernel launch are made with this tile.
 TILE_H = 16
 TILE_W = 16
+# The pixel sub-block one warp of K1 and K2 owns (raster_common.cuh kSubH /
+# kSubW): a tile is SUBS = 8 of them, row-major, sub-block s = bit s of a
+# coarse mask.
+SUB_H = 4
+SUB_W = 8
+SUBS = (TILE_H // SUB_H) * (TILE_W // SUB_W)
 
 # Kernel launches made by render_fused (CUDA tensors only).
 KERNEL_LAUNCHES = 0
@@ -208,6 +214,46 @@ def tile_pixel_centres(bins: Bins, height: int, width: int, y_offset: int,
     gy = ty[:, None] * th_ + ly[None, :]
     gx = tx[:, None] * tw_ + lx[None, :]
     return ((gx + x_offset).to(F32) + 0.5, (gy + y_offset).to(F32) + 0.5)
+
+
+def subblock_masks_plain(coef, bins: Bins, height: int, width: int,
+                         y_offset: int = 0, x_offset: int = 0):
+    """The coarse stage of K1's and K2's visibility walk in plain torch: for
+    every binned (tile, triangle) pair, in `bins.tri_ids` order, an i32 mask
+    whose bit s is set unless an edge function rules out every pixel of the
+    tile's sub-block s (SUB_H x SUB_W pixels, row-major in the tile).
+
+    Per edge the kernel's own expression (A*px + B*py) + C, one f32
+    rounding per op, is taken at the pixel centre of the sub-block corner
+    that maximises it (right column when A >= 0 else left, bottom row when
+    B >= 0 else top). Rounding is monotone, so that value bounds the edge at
+    every pixel of the sub-block, and the bit is cleared only when the
+    corner fails the top-left test e > 0 || (e == 0 && tl > 0): a cleared
+    bit means no pixel there can be covered (a NaN clears it too, and then
+    no pixel passes either; csrc/raster_common.cuh has the argument)."""
+    if (bins.tile_h, bins.tile_w) != (TILE_H, TILE_W):
+        raise ValueError(f"sub-block masks need {TILE_H}x{TILE_W} tiles, got "
+                         f"{bins.tile_h}x{bins.tile_w}")
+    device = coef.device
+    n_tx = -(-width // TILE_W)
+    counts = (bins.tile_start[1:] - bins.tile_start[:-1]).to(torch.int64)
+    tile = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=device), counts)
+    fx0 = ((tile % n_tx) * TILE_W + x_offset)[:, None]   # tile origin in the
+    fy0 = ((tile // n_tx) * TILE_H + y_offset)[:, None]  # frame, [n_pairs, 1]
+    sub = torch.arange(SUBS, device=device)
+    sx = (sub % (TILE_W // SUB_W))[None, :] * SUB_W
+    sy = (sub // (TILE_W // SUB_W))[None, :] * SUB_H
+    c = coef[bins.tri_ids.to(torch.int64)]
+    keep = torch.ones((tile.shape[0], SUBS), dtype=torch.bool, device=device)
+    for e in range(3):
+        A, B, C = (c[:, 3 * e + i][:, None] for i in range(3))
+        tl = c[:, 13 + e][:, None]
+        px = (fx0 + sx + torch.where(A >= 0, SUB_W - 1, 0)).to(F32) + 0.5
+        py = (fy0 + sy + torch.where(B >= 0, SUB_H - 1, 0)).to(F32) + 0.5
+        v = (A * px + B * py) + C
+        keep &= (v > 0) | ((v == 0) & (tl > 0))
+    return (keep.to(I32) << sub.to(I32)[None, :]).sum(dim=1, dtype=I32)
 
 
 def tiles_to_image(a, bins: Bins, height: int, width: int):

@@ -13,8 +13,11 @@ reference, the NumPy scalar oracle and the config 1-3 goldens.
     backend="fused", bit-equal to MeshOracle, and against the reference's
     draw and the config 1-3 goldens (160x120, t = 0.6, packed u8 within +-1).
 
-The `gpu` test compares the CUDA kernel with its plain twin on the card
-(python -m pytest --noconftest -m gpu tests/test_torch_raster.py).
+The `gpu` tests compare the CUDA kernel with its plain twin on the card
+(python -m pytest --noconftest -m gpu tests/test_torch_raster.py), also at
+shapes the scenes do not reach: a bin deeper than two staging chunks, grids
+of shared edges through pixel centres and along sub-block borders, and
+ragged shards with non-zero offsets.
 """
 
 import os
@@ -29,6 +32,7 @@ from oracle_pipeline import MeshOracle
 from dtrenderer_tpu_torch import convert
 from dtrenderer_tpu_torch.models import primitives as pprim
 from dtrenderer_tpu_torch.models import scenes as pscenes
+from dtrenderer_tpu_torch.models import stress
 from dtrenderer_tpu_torch.ops import binning as pbin
 from dtrenderer_tpu_torch.ops import fb as pfb
 from dtrenderer_tpu_torch.ops import geometry as pgeo
@@ -388,4 +392,34 @@ def test_kernel_matches_plain_twin_on_gpu(case):
         assert torch.equal(t_k, t_p)
         z_c, t_c = rasterize_ref(setup.coef, setup.valid, bh, bw,
                                  y_offset=y0, x_offset=x0)
+        assert torch.equal(z_k.cpu(), z_c) and torch.equal(t_k.cpu(), t_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(stress.CASES))
+def test_kernel_matches_plain_twin_on_gpu_stress(case):
+    """What the scenes' shapes do not reach on the card: a tile of more
+    than 512 triangles (three staging chunks), shared edges through pixel
+    centres and along sub-block borders, and shards whose size is no
+    multiple of the tile or the sub-block at non-zero offsets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda", 0)
+    corners, h, w = stress.CASES[case]()
+    setup = stress.setup(corners, h, w, dev)
+    cpu = stress.setup(corners, h, w, CPU)
+    for y0, x0, bh, bw in stress.windows(h, w):
+        bins = pbin.bin_triangles(setup.coef, setup.bbox, setup.valid, bh, bw,
+                                  y0, x0)
+        if case == "deep_tile" and (y0, x0) == (0, 0):
+            assert int((bins.tile_start[1:] - bins.tile_start[:-1]).max()) \
+                > 512
+        z_k, t_k = prp.rasterize_bins(setup.coef, bins, bh, bw, y0, x0)
+        z_p, t_p = prp.rasterize_pallas_plain(setup.coef, bins, bh, bw, y0,
+                                              x0)
+        assert int((t_k >= 0).sum()) > 100
+        assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+        assert torch.equal(t_k, t_p)
+        z_c, t_c = rasterize_ref(cpu.coef, cpu.valid, bh, bw, y_offset=y0,
+                                 x_offset=x0)
         assert torch.equal(z_k.cpu(), z_c) and torch.equal(t_k.cpu(), t_c)

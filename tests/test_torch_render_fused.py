@@ -30,6 +30,7 @@ import torch
 
 import oracle
 from dtrenderer_tpu_torch import convert
+from dtrenderer_tpu_torch.models import stress
 from dtrenderer_tpu_torch.ops import binning as pbin
 from dtrenderer_tpu_torch.ops import geometry as pgeo
 from dtrenderer_tpu_torch.ops import render_fused as prf
@@ -273,3 +274,28 @@ def test_kernel_matches_plain_twin_on_gpu_in_shards():
                                       src_p.view(np.int32))
         np.testing.assert_array_equal(
             z_k.view(np.int32), z_full[y0:y0 + h, x0:x0 + w].view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(stress.CASES))
+def test_kernel_matches_plain_twin_on_gpu_stress(case):
+    """What the scenes' shapes do not reach on the card: a tile of more
+    than 512 triangles (three staging chunks), shared edges through pixel
+    centres and along sub-block borders, and shards whose size is no
+    multiple of the tile or the sub-block at non-zero offsets. z and src
+    bit-equal to the plain twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda", 0)
+    corners, h, w = stress.CASES[case]()
+    setup = stress.setup(corners, h, w, dev)
+    payload, lut = stress.payload(corners, 5, dev)
+    for y0, x0, bh, bw in stress.windows(h, w):
+        bins = pbin.bin_triangles(setup.coef, setup.bbox, setup.valid, bh, bw,
+                                  y0, x0)
+        args = (setup.coef, payload, bins, lut, _light(dev), bh, bw, y0, x0)
+        z_k, src_k, _ = prf.render_fused(*args)
+        z_p, src_p, _ = prf.render_fused_plain(*args)
+        assert int(torch.isfinite(z_k).sum()) > 100
+        assert torch.equal(z_k.view(torch.int32), z_p.view(torch.int32))
+        assert torch.equal(src_k.view(torch.int32), src_p.view(torch.int32))
