@@ -19,6 +19,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
        K3 at the translucent sphere (uv_sphere(50, 52), 5,096 triangles,
          1920x1080 over a cleared framebuffer): depth bit-equal, colour max
          |diff| <= 1e-6, packed u8 within +-1 with zero outliers;
+     each kernel is also timed, twice, as 200 back-to-back launches of its
+     ctypes entry on preallocated outputs between two CUDA events
+     ("launch loop"): the 20-70 us kernels (K3, K1 and K2 at config 4) are
+     then paced by the card and not by the Python wrapper;
      with K1's and K2's share of surviving coarse-stage bits per scene (of
      every binned pair's 8 sub-block bits, those the edge functions leave
      set: the share of per-warp edge tests the kernels still run); then K1
@@ -37,13 +41,27 @@ Run from the root of a checkout. Phases, each of which raises on failure:
        config 4's draws at 1080p with the first sphere translucent
          (alpha 0.6) between the opaque draws, one draw_meshes, 2 frames:
          one K1 launch per opaque run (2) and one K3 launch per frame;
+       the API frame, 1920x1080, 3 frames through platform.run_app with an
+         InputScript, built from api verbs only: tools.demo.demo_frame on
+         "fused" (clear, one render_meshes = one K1 launch, two alpha
+         rectangles, a line, a circle, a rotated scaled bilinear blit),
+         render_mesh_ordered of the translucent sphere (one K3 launch), a
+         textured render_triangle, the DebugHud with the frame's counters,
+         a proportional footer, finish_frame: K1 3, K2 0, K3 3; then one
+         demo_frame on "pallas": K2 3. The last frame is written with
+         present_png, decoded again natively and must equal the packed
+         frame byte for byte;
      ms/frame, shaded Mpix/s and Mtris/s;
   5. stage breakdown of one frame per path (vertex stage + packing,
      binning, kernel, merge or deferred shading), after the counted windows;
+     and the API frame's verbs one by one (best of three);
   6. reference check, small frames on the card against the same frames on
      the CPU: configs 1-3 (160x120) on "ref", "pallas" and "fused", configs
      4 and 5 small on "fused", and a 160x120 translucent sphere through the
-     "tile" and "scan" engines: depth bit-equal, u8 within +-1, no outliers.
+     "tile" and "scan" engines: depth bit-equal, u8 within +-1, no outliers;
+     then every 2D verb, both text functions with both fonts, a textured
+     render_triangle and the HUD, after each verb: the same bar, and depth
+     bit-equal to the depth before each 2D verb.
 
 Prints one JSON line describing the kernels (with each kernel's least time
 on the card, its bound), then, as the last line, {"ok": true, "device":
@@ -111,6 +129,13 @@ def interleaved_ms(kernel, plain, reps: int):
     k2 = cuda_ms(kernel, reps)
     p2 = cuda_ms(plain, 1)
     return min(k1, k2), min(p1, p2), (p1, k1, k2, p2)
+
+
+def launch_loop_ms(launch, reps: int = 200):
+    """Two readings of `launch` (a kernel's ctypes entry on preallocated
+    tensors, nothing else per turn) over `reps` back-to-back launches: the
+    host enqueues a turn in a few microseconds, so the card sets the pace."""
+    return cuda_ms(launch, reps), cuda_ms(launch, reps)
 
 
 def nbytes(*tensors) -> int:
@@ -298,7 +323,7 @@ def mixed_config4(spec4):
 
 def k1_vs_plain(spec, card):
     """K1 for one scene: (max_abs_err, kernel ms, plain ms, bound, share of
-    surviving coarse bits)."""
+    surviving coarse bits, the two launch-loop readings)."""
     import torch
 
     from dtrenderer_tpu_torch.ops import raster_pallas as rp
@@ -326,25 +351,36 @@ def k1_vs_plain(spec, card):
                      bins.tri_ids, batch.tex_lut, z_k, src_k)
     b = bound(n_bytes, ops)
     share = surviving_bits(batch.coef, bins, spec.height, spec.width)
+    from dtrenderer_tpu_torch.kernels import render_fused as k1
+
+    scal = rf.light_scalars(sub.light)
+    loop = launch_loop_ms(lambda: k1.launch(
+        batch.coef, batch.payload, bins.tile_start, bins.tri_ids,
+        batch.tex_lut, scal, z_k, src_k, spec.height, spec.width, 0, 0))
     print(f"K1 {spec.name}: kernel {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), "
+          f"launch loop {loop[0]:.4f}, {loop[1]:.4f} ms, "
           f"plain twin {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), bound "
           f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops), "
           f"surviving coarse bits {share:.4f} [{card}]")
-    return err, k_ms, p_ms, b, share
+    return err, k_ms, p_ms, b, share, loop
 
 
 def k2_vs_plain(spec, card):
     """K2 on each draw of one scene (the main path launches it once per
     draw): (max |z diff|, summed kernel ms, summed plain ms, bound, share of
-    surviving coarse bits over all draws' pairs)."""
+    surviving coarse bits over all draws' pairs, the two launch-loop
+    readings summed over the draws)."""
     import torch
 
     from dtrenderer_tpu_torch.ops import pipeline
     from dtrenderer_tpu_torch.ops import raster_pallas as rp
     from dtrenderer_tpu_torch.ops import render_fused as rf
 
+    from dtrenderer_tpu_torch.kernels import raster_visibility as k2
+
     sub = spec.submission(0.5)
     k_ms = p_ms = err = kept = 0.0
+    loop = [0.0, 0.0]
     n_bytes = n_ops = n_pairs = 0
     for i, d in enumerate(sub.draws):
         batch = pipeline.pack_draws([d], sub.view_proj, sub.light,
@@ -370,9 +406,14 @@ def k2_vs_plain(spec, card):
               f"covered px {int((t_k >= 0).sum())}")
         k, p, r = interleaved_ms(lambda: rp.rasterize_bins(*args),
                                  lambda: rp.rasterize_pallas_plain(*args), 20)
-        print(f"{tag}: kernel {k:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), plain "
+        lp = launch_loop_ms(lambda: k2.launch(
+            batch.coef, bins.tile_start, bins.tri_ids, z_k, t_k, spec.height,
+            spec.width, 0, 0))
+        print(f"{tag}: kernel {k:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), launch "
+              f"loop {lp[0]:.4f}, {lp[1]:.4f} ms, plain "
               f"twin {p:.4f} ms ({r[0]:.4f}, {r[3]:.4f}) [{card}]")
         k_ms, p_ms = k_ms + k, p_ms + p
+        loop = [loop[0] + lp[0], loop[1] + lp[1]]
         n_bytes += nbytes(batch.coef, bins.tile_start, bins.tri_ids, z_k,
                           t_k)
         n_ops += (edge_pixels(batch.bbox, bins, spec.width) * EDGE_OPS
@@ -383,16 +424,17 @@ def k2_vs_plain(spec, card):
         n_pairs += pairs
     b = bound(n_bytes, n_ops)
     share = kept / max(1, n_pairs)
-    print(f"K2 {spec.name}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms "
+    print(f"K2 {spec.name}: kernel {k_ms:.4f} ms, launch loop "
+          f"{loop[0]:.4f}, {loop[1]:.4f} ms, plain twin {p_ms:.4f} ms "
           f"over {len(sub.draws)} draw(s), bound {b[0]:.4f} ms by {b[1]} "
           f"({n_bytes} bytes, {n_ops} f32 ops), surviving coarse bits "
           f"{share:.4f} [{card}]")
-    return err, k_ms, p_ms, b, share
+    return err, k_ms, p_ms, b, share, tuple(loop)
 
 
 def k3_vs_plain(scene, card):
     """K3 at the translucent sphere: (max |colour diff|, kernel ms, plain
-    ms, bound)."""
+    ms, bound, the two launch-loop readings)."""
     import torch
 
     from dtrenderer_tpu_torch.ops import fb as fblib
@@ -423,11 +465,20 @@ def k3_vs_plain(scene, card):
                      bins.tri_ids, batch.tex_lut, fb.color, fb.depth, c_k,
                      d_k)
     b = bound(n_bytes, ops)
+    from dtrenderer_tpu_torch.kernels import render_ordered as k3
+
+    scal = rf.light_scalars(sub.light)
+    loop = launch_loop_ms(lambda: k3.launch(
+        batch.coef, batch.payload, bins.tile_start, bins.tri_ids,
+        batch.tex_lut, scal, fb.color, fb.depth, c_k, d_k, scene.height,
+        scene.width, 0, 0))
     print(f"K3 {scene.name}: kernel {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), "
+          f"launch loop {loop[0]:.4f}, {loop[1]:.4f} ms "
+          f"({loop[0] / b[0]:.2f}x, {loop[1] / b[0]:.2f}x the bound), "
           f"plain twin {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), bound "
           f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops) "
           f"[{card}]")
-    return err, k_ms, p_ms, b
+    return err, k_ms, p_ms, b, loop
 
 
 def stress_vs_plain():
@@ -540,6 +591,253 @@ def main_path(tag, runs, want: dict, card) -> dict:
         raise AssertionError(f"{tag}: kernel launches {got}, want {want}")
     print(f"{tag}: kernel launches {got}")
     return got
+
+
+# --------------------------------------------------------------- API frame
+
+
+class ApiFrame:
+    """The frame a user of the public surface builds, from api verbs only:
+    the demo scene on one backend, the translucent sphere through
+    render_mesh_ordered, a textured render_triangle with per-corner q, the
+    HUD with the frame's counters and one pushed line, and the proportional
+    footer."""
+
+    SPHERE_COLOR = (0.8, 0.5, 0.9, 0.5)
+
+    def __init__(self, width, height, device):
+        import numpy as np
+
+        from dtrenderer_tpu_torch.assets.font import bake_builtin_font
+        from dtrenderer_tpu_torch.debug import DebugHud
+        from dtrenderer_tpu_torch.models import primitives
+        from dtrenderer_tpu_torch.ops.shading import make_light
+        from dtrenderer_tpu_torch.utils import math3d as m3
+
+        self.width, self.height, self.device = width, height, device
+        self.cube = primitives.cube(device=device)
+        self.ball = primitives.uv_sphere(24, 32, device=device)
+        self.tex = primitives.checkerboard(64, 8, (1.0, 0.85, 0.3, 1.0),
+                                           (0.15, 0.15, 0.5, 1.0),
+                                           device=device)
+        self.grad = primitives.gradient_texture(64, device=device)
+        # the translucent sphere of the K3 phases, same model and light
+        self.sphere = primitives.uv_sphere(50, 52, device=device)
+        self.sphere_model = m3.model_matrix(
+            (0, 0, -3.0), m3.rotate_y(0.4, device=device), 1.4, device=device)
+        self.proj = m3.perspective(np.pi / 3, width / height, 0.1, 100.0,
+                                   device=device)
+        self.light = make_light((0.4, 0.6, 1.0), 0.15, device=device)
+        self.hud = DebugHud(device=device)
+        self.hud.frame_ms = 16.67  # fixed: frames must not depend on the clock
+        self.sans = bake_builtin_font(16, "sans", device=device)
+        self.n_tris = (2 * self.cube.num_tris + self.ball.num_tris
+                       + self.sphere.num_tris)
+        self.before_overlay = None
+        self.counters = None
+
+    def triangle(self, state):
+        from dtrenderer_tpu_torch import api
+
+        w, h = self.width, self.height
+        return api.render_triangle(
+            state, (0.30 * w, 0.08 * h, 0.05, 1.0),
+            (0.46 * w, 0.12 * h, 0.05, 0.5), (0.34 * w, 0.30 * h, 0.05, 0.25),
+            color=(1.0, 1.0, 1.0, 0.9), uv0=(0, 1), uv1=(1, 1), uv2=(0, 0),
+            texture=self.tex, sampling_mode="bilinear")
+
+    def overlay(self, state):
+        from dtrenderer_tpu_torch.tools import demo
+
+        self.hud.push_text("chip_smoke API frame %dx%d", self.width,
+                           self.height)
+        state = state._replace(fb=self.hud.render(state.fb, self.counters))
+        return demo.draw_footer(state, self.sans)
+
+    def update(self, state, t):
+        """One frame at time t -> state (before finish_frame)."""
+        from dtrenderer_tpu_torch import api
+        from dtrenderer_tpu_torch.tools import demo
+
+        state, counters = demo.demo_frame(state, t, self.cube, self.ball,
+                                          self.tex, self.grad, "fused")
+        state, c3 = api.render_mesh_ordered(
+            state, self.sphere, self.sphere_model, self.proj,
+            light=self.light, color=self.SPHERE_COLOR, shading="gouraud",
+            return_counters=True)
+        self.counters = counters.merge(c3)
+        state = self.triangle(state)
+        self.before_overlay = state
+        return self.overlay(state)
+
+
+def differs(a, b, rows) -> bool:
+    import torch
+
+    return not torch.equal(a.fb.color[rows], b.fb.color[rows])
+
+
+def api_frame_path(card) -> dict:
+    """The API frame: 3 frames of 1920x1080 through platform.run_app, then
+    one demo frame on backend "pallas"; launch counts set to 0 before each
+    and read after. Returns the summed launches."""
+    import torch
+
+    from dtrenderer_tpu_torch import api, platform
+    from dtrenderer_tpu_torch.assets import native
+    from dtrenderer_tpu_torch.tools import demo
+
+    dev = torch.device(DEVICE)
+    w, h = 1920, 1080
+    frame = ApiFrame(w, h, dev)
+    times, images = [], []
+
+    def update(state, inp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = frame.update(state, 0.6 + inp.time_now_s)
+        img = api.finish_frame(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        i = len(times) - 1
+        if not (img.dtype == torch.uint8 and img.shape == (h, w, 4)
+                and img.device == dev):
+            raise AssertionError(f"API frame {i}: finish_frame gave "
+                                 f"{img.dtype} {tuple(img.shape)} on "
+                                 f"{img.device}")
+        hud_rows = slice(0, 4 + 4 * (frame.hud.font.cell_h + 2))
+        foot_rows = slice(h - frame.sans.cell_h - 6, h)
+        if not differs(state, frame.before_overlay, hud_rows):
+            raise AssertionError(f"API frame {i}: the HUD drew nothing")
+        if not differs(state, frame.before_overlay, foot_rows):
+            raise AssertionError(f"API frame {i}: the footer drew nothing")
+        if not torch.equal(state.fb.depth, frame.before_overlay.fb.depth):
+            raise AssertionError(f"API frame {i}: the overlay touched depth")
+        submitted, valid, shaded, overflow = (int(c) for c in frame.counters)
+        # near clipping makes two setup rows of every submitted triangle
+        if submitted != 2 * frame.n_tris or overflow != 0:
+            raise AssertionError(
+                f"API frame {i}: tris_submitted {submitted} (want "
+                f"{2 * frame.n_tris}), bin_overflow {overflow}")
+        if not 0 < valid <= submitted or shaded <= 0:
+            raise AssertionError(f"API frame {i}: counters {valid} valid, "
+                                 f"{shaded} px")
+        images.append(img)
+        return state
+
+    reset_counts()
+    script = platform.InputScript({0: {"press": ["w"]}}, dt=0.03)
+    state, n, _ = platform.run_app(update, api.new_state(w, h, device=dev), 3,
+                                   script)
+    got = read_counts()
+    want = {"K1": 3, "K2": 0, "K3": 3}
+    if got != want or n != 3:
+        raise AssertionError(f"API frame: kernel launches {got}, want {want}")
+    if torch.equal(images[0], images[2]):
+        raise AssertionError("API frame: frames 0 and 2 are the same image")
+    print(f"API frame main path: {w}x{h}, {frame.n_tris} tris, ms/frame "
+          f"{', '.join(f'{t:.3f}' for t in times)} (best {min(times):.3f}), "
+          f"kernel launches {got} [{card}]")
+
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    png = os.path.join(out_dir, "api_frame.png")
+    platform.present_png(state, png)
+    decoded = native.decode_image_file(png)
+    packed = images[-1].cpu().numpy()
+    if decoded.shape != packed.shape or decoded.tobytes() != packed.tobytes():
+        raise AssertionError("API frame: the PNG does not decode to the "
+                             "packed frame")
+    print(f"API frame: present_png -> {os.path.relpath(png, REPO)} "
+          f"({os.path.getsize(png)} bytes), decoded natively, byte-equal to "
+          f"finish_frame")
+
+    # the same demo frame through the visibility kernel + deferred shading
+    fused_state, _ = demo.demo_frame(api.new_state(w, h, device=dev), 0.6,
+                                     frame.cube, frame.ball, frame.tex,
+                                     frame.grad, "fused")
+    reset_counts()
+    (pallas_state, _), ms = timed(lambda: demo.demo_frame(
+        api.new_state(w, h, device=dev), 0.6, frame.cube, frame.ball,
+        frame.tex, frame.grad, "pallas"))
+    got2 = read_counts()
+    want2 = {"K1": 0, "K2": 3, "K3": 0}
+    if got2 != want2:
+        raise AssertionError(f"demo frame on pallas: kernel launches {got2}, "
+                             f"want {want2}")
+    compare("demo frame 1920x1080, backend pallas vs fused",
+            pallas_state.fb.depth, pallas_state.fb.color,
+            fused_state.fb.depth, fused_state.fb.color)
+    print(f"demo frame on pallas main path: {ms:.3f} ms, kernel launches "
+          f"{got2} [{card}]")
+    verb_times(frame, card, min(times), times)
+    return {k: got[k] + got2[k] for k in got}
+
+
+def verb_times(frame, card, best_ms, all_ms):
+    """Each verb of the API frame alone on a 1080p state, host clock to a
+    synchronise, three samples each (after the counted windows: these
+    launches are not the main path's)."""
+    import numpy as np
+
+    from dtrenderer_tpu_torch import api
+    from dtrenderer_tpu_torch.tools import demo
+    from dtrenderer_tpu_torch.utils.color import rgba
+
+    w, h, dev = frame.width, frame.height, frame.device
+    state = frame.update(api.new_state(w, h, device=dev), 0.6)
+    proj, light, draws = demo.demo_draws(
+        np.float32(0.6), w, h, frame.cube, frame.ball, frame.tex, frame.grad,
+        dev)
+    rot = api.transform2d(rotation=0.48, device=dev)
+    spin = api.transform2d(rotation=-0.6, scale=3.0, device=dev)
+    bmp = demo._blit_bitmap(dev)
+    lines = 3
+
+    def hud():
+        frame.hud.push_text("chip_smoke API frame %dx%d", w, h)
+        return frame.hud.render(state.fb, frame.counters)
+
+    verbs = {
+        "clear": lambda: api.clear(state, rgba(0.06, 0.07, 0.12, 1.0)),
+        "render_meshes": lambda: api.render_meshes(
+            state, proj, draws, light=light, sampling_mode="bilinear",
+            return_counters=True),
+        "render_mesh_ordered": lambda: api.render_mesh_ordered(
+            state, frame.sphere, frame.sphere_model, frame.proj,
+            light=frame.light, color=frame.SPHERE_COLOR, shading="gouraud",
+            return_counters=True),
+        "render_rectangle": lambda: api.render_rectangle(
+            state, (20, h - 90), (120, h - 20), rgba(0.9, 0.2, 0.2, 0.6)),
+        "render_rectangle_rotated": lambda: api.render_rectangle(
+            state, (70, h - 110), (180, h - 60), rgba(0.2, 0.6, 0.9, 0.5),
+            rot),
+        "render_line": lambda: api.render_line(
+            state, (w - 180, h - 30), (w - 30, h - 100), rgba(1, 1, 0.3, 1)),
+        "render_circle": lambda: api.render_circle(
+            state, (w - 100, h - 140), 28, rgba(0.3, 0.9, 0.4, 0.8)),
+        "render_circle_outline": lambda: api.render_circle(
+            state, (w - 100, h - 140), 28, rgba(0.3, 0.9, 0.4, 0.8), False),
+        "render_bitmap": lambda: api.render_bitmap(
+            state, bmp, (w - 220, 40), spin, sampling_mode="bilinear"),
+        "render_triangle": lambda: frame.triangle(state),
+        "render_text": lambda: api.render_text(state, "one line of text",
+                                               (4, 200)),
+        f"hud_{lines}_lines": hud,
+        "footer": lambda: demo.draw_footer(state, frame.sans),
+        "finish_frame": lambda: api.finish_frame(state),
+    }
+    out = {}
+    for name, fn in verbs.items():
+        samples = [timed(fn)[1] for _ in range(3)]
+        out[name] = [round(x, 4) for x in samples]
+    best = {k: min(v) for k, v in out.items()}
+    best["hud_per_line"] = round(best[f"hud_{lines}_lines"] / lines, 4)
+    print("API frame verbs, ms (host clock to a synchronise, three samples "
+          f"each) [{card}]: {json.dumps(out)}")
+    print(f"API frame verbs, best ms [{card}]: {json.dumps(best)}")
+    print(f"API frame whole, ms [{card}]: "
+          f"{json.dumps({'frames': [round(t, 4) for t in all_ms], 'best': round(best_ms, 4)})}")
 
 
 # ---------------------------------------------------------- stage breakdown
@@ -658,6 +956,88 @@ def reference_check():
                 out[0][1], out[0][0], out[1][1], out[1][0])
 
 
+def draw2d_text_check():
+    """Every 2D verb, both text functions with both fonts, a textured
+    render_triangle with per-corner q and the HUD, 160x120, on the card
+    against the CPU after each verb: depth bit-equal, colour max |diff| <=
+    1e-6, packed u8 within +-1 with zero outliers; a 2D verb leaves the
+    depth it was given bit for bit."""
+    import torch
+
+    from dtrenderer_tpu_torch import api
+    from dtrenderer_tpu_torch.assets.font import bake_builtin_font, encode_text
+    from dtrenderer_tpu_torch.debug import DebugHud, FrameCounters
+    from dtrenderer_tpu_torch.models import primitives
+    from dtrenderer_tpu_torch.ops import text as textlib
+    from dtrenderer_tpu_torch.utils.color import rgba
+
+    w, h = 160, 120
+    codes = encode_text("Card vs CPU: iiii WWWW {~}")
+
+    def steps(dev):
+        """[(name, touches depth, state)] after each verb."""
+        tex = primitives.checkerboard(16, 4, (1, 0.5, 0.1, 0.9),
+                                      (0.1, 0.3, 1.0, 0.9), device=dev)
+        mono = bake_builtin_font(14, device=dev)
+        sans = bake_builtin_font(14, "sans", device=dev)
+        t2d = lambda **kw: api.transform2d(device=dev, **kw)
+        st = api.clear(api.new_state(w, h, device=dev),
+                       rgba(0.06, 0.07, 0.12, 1.0))
+        out = []
+
+        def add(name, st, depth=False):
+            out.append((name, depth, st))
+            return st
+
+        st = add("render_triangle textured, per-corner q", api.render_triangle(
+            st, (20, 10, 0.3, 1.0), (150, 30, 0.3, 0.5), (40, 110, 0.3, 0.25),
+            color=rgba(1, 1, 1, 0.9), uv0=(0, 1), uv1=(1, 1), uv2=(0, 0),
+            texture=tex, sampling_mode="bilinear"), True)
+        st = add("rect plain", api.render_rectangle(
+            st, (10.3, 7.7), (60.2, 41.9), rgba(0.9, 0.2, 0.2, 0.6)))
+        st = add("rect rotated", api.render_rectangle(
+            st, (70, 20), (140, 60), rgba(0.2, 0.6, 0.9, 0.5),
+            t2d(rotation=0.48, scale=(1.2, 0.8), anchor=(0.25, 0.75))))
+        st = add("line x-major", api.render_line(
+            st, (5, 100), (150, 31), rgba(1, 1, 0.3, 1)))
+        st = add("line y-major", api.render_line(
+            st, (120.6, 4.2), (101.3, 117.9), rgba(0.3, 1, 1, 0.7)))
+        st = add("circle filled", api.render_circle(
+            st, (60.2, 70.7), 28.3, rgba(0.3, 0.9, 0.4, 0.8)))
+        st = add("circle outline", api.render_circle(
+            st, (100, 60), 40.5, rgba(1, 1, 1, 0.9), filled=False))
+        st = add("blit nearest, rotated scaled", api.render_bitmap(
+            st, tex, (50, 40), t2d(rotation=-0.6, scale=1.7)))
+        st = add("blit bilinear, rotated scaled", api.render_bitmap(
+            st, tex, (110, 80), t2d(rotation=0.9, scale=3.0),
+            sampling_mode="bilinear", tint=(0.9, 0.8, 0.7, 0.8)))
+        for fname, font in (("mono", mono), ("sans", sans)):
+            st = add(f"draw_text {fname}", st._replace(fb=textlib.draw_text(
+                st.fb, font, codes, (-6, 12), (1, 1, 1, 0.9), 1)))
+            st = add(f"draw_text_proportional {fname}", st._replace(
+                fb=textlib.draw_text_proportional(
+                    st.fb, font, codes, (3, -4), (1, 0.95, 0.7, 1), 2)))
+        hud = DebugHud(device=dev)
+        hud.frame_ms = 16.67
+        hud.push_text("pushed line")
+        counters = FrameCounters(*[
+            torch.tensor(v, dtype=torch.int32, device=dev)
+            for v in (2992, 518, 5264, 7)])
+        add("HUD with counters", st._replace(fb=hud.render(st.fb, counters)))
+        return out
+
+    card, cpu = steps(torch.device(DEVICE)), steps(torch.device("cpu"))
+    depth_before = card[0][2].fb.depth
+    for (name, touches_depth, a), (_, _, b) in zip(card, cpu):
+        compare(f"2D/text {name} {w}x{h}, card vs CPU", a.fb.depth,
+                a.fb.color, b.fb.depth, b.fb.color)
+        if touches_depth:
+            depth_before = a.fb.depth
+        elif not torch.equal(a.fb.depth.view(torch.int32),
+                             depth_before.view(torch.int32)):
+            raise AssertionError(f"2D/text {name}: the verb changed depth")
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -734,6 +1114,8 @@ def main() -> int:
     for tag, runs, want in paths:
         for k, n in main_path(tag, runs, want, card).items():
             launches[k] += n
+    for k, n in api_frame_path(card).items():
+        launches[k] += n
 
     stages_fused(cfg4, card)
     stages_fused(cfg5, card)
@@ -741,6 +1123,7 @@ def main() -> int:
     stages_pallas(cfg5p, card)
     stages_ordered(sphere, card)
     reference_check()
+    draw2d_text_check()
 
     def entry(name, source, replaces, key, res, **extra):
         err, ms, plain_ms, (bound_ms, bound_by) = res[:4]
@@ -749,21 +1132,23 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[key],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, **extra}
+                "library_ms": None, "launch_loop_ms": list(res[-1]), **extra}
 
     report = {"kernels": [
         entry("render_fused", "render_fused.cu",
               "dtrenderer_tpu/ops/render_fused.py:269", "K1",
               (max(k1_4[0], k1_5[0]), *k1_5[1:]),
               ms_config4_1080p=k1_4[1], plain_ms_config4_1080p=k1_4[2],
-              bound_ms_config4_1080p=k1_4[3][0], surviving_bits=k1_5[4],
-              surviving_bits_config4_1080p=k1_4[4]),
+              bound_ms_config4_1080p=k1_4[3][0],
+              launch_loop_ms_config4_1080p=list(k1_4[5]),
+              surviving_bits=k1_5[4], surviving_bits_config4_1080p=k1_4[4]),
         entry("raster_visibility", "raster_visibility.cu",
               "dtrenderer_tpu/ops/raster_pallas.py:36", "K2",
               (max(k2_4[0], k2_5[0]), *k2_5[1:]),
               ms_config4_1080p=k2_4[1], plain_ms_config4_1080p=k2_4[2],
-              bound_ms_config4_1080p=k2_4[3][0], surviving_bits=k2_5[4],
-              surviving_bits_config4_1080p=k2_4[4]),
+              bound_ms_config4_1080p=k2_4[3][0],
+              launch_loop_ms_config4_1080p=list(k2_4[5]),
+              surviving_bits=k2_5[4], surviving_bits_config4_1080p=k2_4[4]),
         entry("render_ordered", "render_ordered.cu",
               "dtrenderer_tpu/ops/raster_ordered.py:51", "K3", k3),
     ]}

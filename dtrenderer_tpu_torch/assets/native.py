@@ -1,12 +1,11 @@
 """ctypes bindings to the dtr_native C++ asset library (OBJ parse, image
-decode).
+decode, TTF atlas bake).
 
-The port's own copy of the OBJ and image parts of
-`dtrenderer_tpu/assets/native.py`: the same C ABI of the committed
-`native/libdtr_native.so` (built from `native/dtr_native.cpp` with
-`make -C native`), so both packages parse and decode bit-identically. The
-font atlas binding waits for the text slice. There is no fallback: when the
-library cannot be loaded, every call raises.
+The port's own copy of `dtrenderer_tpu/assets/native.py`: the same C ABI of
+the committed `native/libdtr_native.so` (built from `native/dtr_native.cpp`
+and `native/dtr_font.cpp` with `make -C native`), so both packages parse,
+decode and bake bit-identically. There is no fallback: when the library
+cannot be loaded, every call raises.
 """
 
 from __future__ import annotations
@@ -51,6 +50,22 @@ class _Image(C.Structure):
     ]
 
 
+class _FontAtlas(C.Structure):
+    _fields_ = [
+        ("atlas", C.POINTER(C.c_uint8)),
+        ("atlas_w", C.c_int32),
+        ("atlas_h", C.c_int32),
+        ("cell_w", C.c_int32),
+        ("cell_h", C.c_int32),
+        ("first_char", C.c_int32),
+        ("num_chars", C.c_int32),
+        ("grid_cols", C.c_int32),
+        ("metrics", C.POINTER(C.c_float)),
+        ("ascent_px", C.c_float),
+        ("error", C.c_char * 256),
+    ]
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
     try:
@@ -65,6 +80,10 @@ def _lib():
     lib.dtr_image_decode.restype = C.POINTER(_Image)
     lib.dtr_image_decode.argtypes = [C.c_char_p, C.c_int64]
     lib.dtr_image_free.argtypes = [C.POINTER(_Image)]
+    lib.dtr_font_bake_file.restype = C.POINTER(_FontAtlas)
+    lib.dtr_font_bake_file.argtypes = [C.c_char_p, C.c_float,
+                                       C.c_int32, C.c_int32, C.c_int32]
+    lib.dtr_font_free.argtypes = [C.POINTER(_FontAtlas)]
     return lib
 
 
@@ -125,3 +144,28 @@ def decode_image_bytes(data: bytes) -> np.ndarray:
 def decode_image_file(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_image_bytes(f.read())
+
+
+def bake_font_file(path: str, pixel_size: float, first_char: int = 32,
+                   num_chars: int = 95, grid_cols: int = 16):
+    """Bake a TTF glyph atlas natively.
+
+    Returns (atlas u8 [H, W] coverage, cell_w, cell_h, metrics f32
+    [num_chars, 4] (advance, bearing_x, baseline_y, used), ascent_px).
+    """
+    lib = _lib()
+    ap = lib.dtr_font_bake_file(path.encode(), pixel_size, first_char,
+                                num_chars, grid_cols)
+    a = ap.contents
+    try:
+        err = a.error.decode()
+        if err:
+            raise IOError(f"dtr_native font: {err}")
+        atlas = _copy(a.atlas, a.atlas_w * a.atlas_h, np.uint8).reshape(
+            a.atlas_h, a.atlas_w
+        )
+        metrics = _copy(a.metrics, a.num_chars * 4, np.float32).reshape(-1, 4)
+        out = (atlas, int(a.cell_w), int(a.cell_h), metrics, float(a.ascent_px))
+    finally:
+        lib.dtr_font_free(ap)
+    return out

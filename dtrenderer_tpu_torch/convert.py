@@ -12,7 +12,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dtrenderer_tpu_torch.api import RenderState
+from dtrenderer_tpu_torch.assets.font import Font
 from dtrenderer_tpu_torch.models.mesh import Mesh
+from dtrenderer_tpu_torch.ops.draw2d import Transform2D
+from dtrenderer_tpu_torch.ops.fb import Framebuffer
 from dtrenderer_tpu_torch.ops.shading import Light
 
 
@@ -44,3 +48,29 @@ def light(l, device) -> Light:
     """Light(direction [3], ambient []) -> the port's Light."""
     return Light(direction=tensor(l.direction, device),
                  ambient=tensor(l.ambient, device))
+
+
+def font(f, device) -> Font:
+    """Font(atlas, cell_w, cell_h, advances) -> the port's Font."""
+    return Font(atlas=tensor(f.atlas, device), cell_w=int(f.cell_w),
+                cell_h=int(f.cell_h),
+                advances=(None if f.advances is None
+                          else tensor(f.advances, device)))
+
+
+def framebuffer(fb, device) -> Framebuffer:
+    """Framebuffer(color [H, W, 4], depth [H, W]) -> the port's."""
+    return Framebuffer(color=tensor(fb.color, device),
+                       depth=tensor(fb.depth, device))
+
+
+def render_state(s, device) -> RenderState:
+    """RenderState(fb) -> the port's."""
+    return RenderState(fb=framebuffer(s.fb, device))
+
+
+def transform2d(t, device) -> Transform2D:
+    """Transform2D(rotation [], scale [2], anchor [2]) -> the port's."""
+    return Transform2D(rotation=tensor(t.rotation, device),
+                       scale=tensor(t.scale, device),
+                       anchor=tensor(t.anchor, device))

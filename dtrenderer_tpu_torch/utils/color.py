@@ -10,6 +10,7 @@ by a Python float: PyTorch's CUDA divide turns `x / python_float` into
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -68,3 +69,13 @@ def pack_srgb_u8(rgba_f32):
     )
     return torch.floor(torch.clamp(srgb, 0.0, 1.0) * 255.0 + 0.5).to(
         torch.uint8)
+
+
+def rgba(r, g, b, a=1.0) -> tuple[float, float, float, float]:
+    """Literal linear premultiplied colour. The products are taken in f32,
+    as the reference takes them; the result is a tuple of Python floats (each
+    exactly an f32 value), which every verb that takes a colour turns into a
+    tensor on its framebuffer's device."""
+    a32 = np.float32(a)
+    return (float(np.float32(r) * a32), float(np.float32(g) * a32),
+            float(np.float32(b) * a32), float(a32))

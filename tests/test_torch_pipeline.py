@@ -330,8 +330,10 @@ def test_config4_port_matches_reference_render_without_bin_drops():
 
 def test_port_imports_no_jax():
     """Every module of the port imports, a config-1 frame renders on the
-    "ref" backend and a translucent draw on both ordered engines, and no
-    module of JAX or of the JAX package was loaded."""
+    "ref" backend and a translucent draw on both ordered engines, the
+    12-px font is baked, a text line and a rectangle are drawn through the
+    api, and no module of JAX, of the JAX package, of PIL or of matplotlib
+    was loaded."""
     code = (
         "import sys\n"
         "import dtrenderer_tpu_torch\n"
@@ -345,6 +347,14 @@ def test_port_imports_no_jax():
         "import dtrenderer_tpu_torch.ops.pipeline, dtrenderer_tpu_torch.ops.sampling\n"
         "import dtrenderer_tpu_torch.ops.raster_ref, dtrenderer_tpu_torch.ops.raster_pallas\n"
         "import dtrenderer_tpu_torch.ops.raster_ordered\n"
+        "import dtrenderer_tpu_torch.ops.draw2d, dtrenderer_tpu_torch.ops.text\n"
+        "import dtrenderer_tpu_torch.api, dtrenderer_tpu_torch.platform\n"
+        "import dtrenderer_tpu_torch.tools.demo, dtrenderer_tpu_torch.tools.cli\n"
+        "import dtrenderer_tpu_torch.tools.bake_fonts\n"
+        "import dtrenderer_tpu_torch.utils.rng, dtrenderer_tpu_torch.utils.trace\n"
+        "import dtrenderer_tpu_torch.utils.checkpoint\n"
+        "from dtrenderer_tpu_torch import api\n"
+        "from dtrenderer_tpu_torch.assets.font import bake_builtin_font\n"
         "from dtrenderer_tpu_torch.models import primitives, scenes\n"
         "from dtrenderer_tpu_torch.ops import fb, pipeline\n"
         "from dtrenderer_tpu_torch.utils import math3d as m3\n"
@@ -358,8 +368,14 @@ def test_port_imports_no_jax():
         "    pipeline.draw_mesh_ordered(fb.create(32, 64, 'cpu'),\n"
         "        primitives.uv_sphere(6, 8, device='cpu'), mdl, proj,\n"
         "        color=(1, 0.5, 0.2, 0.5), engine=engine)\n"
+        "font = bake_builtin_font(12, device='cpu')\n"
+        "st = api.clear(api.new_state(64, 32, device='cpu'))\n"
+        "st = api.render_text(st, 'no jax', (2, 2), font=font)\n"
+        "st = api.render_rectangle(st, (4, 20), (30, 28), (1, 0, 0, 1),\n"
+        "    api.transform2d(rotation=0.3, device='cpu'))\n"
+        "assert api.finish_frame(st)[..., 0].max() == 255\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'PIL', 'matplotlib'))\n"
         "             or m == 'dtrenderer_tpu' or m.startswith('dtrenderer_tpu.'))\n"
         "assert not bad, bad\n"
     )
