@@ -52,10 +52,30 @@ Run from the root of a checkout. Phases, each of which raises on failure:
          present_png, decoded again natively and must equal the packed
          frame byte for byte;
      ms/frame, shaded Mpix/s and Mtris/s;
-  5. stage breakdown of one frame per path (vertex stage + packing,
+  5. band paths (parallel/shard.py), meshes 1 x 8 x 1 and 1 x 4 x 2 over
+     this machine's cards, cycled (one card: every cell is cuda:0), each
+     path counted as in 4 and held bit-equal (z/depth and colour) to its
+     single-launch frame:
+       config 5 (3840x2160, 1,000,000 triangles) in 8 row bands of 270
+         rows through draw_mesh_sharded on "fused", binned per band,
+         through the shared table and through the distributed exchange, 2
+         frames each: 8 K1 launches a frame; the same three ways through
+         draw_mesh(raster_opts row_bands=8) on the whole framebuffer, the
+         shared one also as benchlib.device_time over 5 calls;
+       config 5 on "pallas", 8 bands, 2 frames: 8 K2 launches a frame;
+       the three ways' binning alone (ms) and their kept pairs, equal per
+         tile with ids ascending; K1's eight band launches back to back
+         against the one whole-frame launch (CUDA events);
+       config 4 (1920x1080) through render_frames_sharded with the scene's
+         band arguments on 4 x 2 tiles of 270x960, 2 frames: 8 K1 launches
+         a frame;
+       the translucent sphere, 1080p, 8 bands of 135 rows through
+         draw_mesh_ordered_sharded, 2 frames: 8 K3 launches a frame;
+       tools.dryrun over 8 cells, in-process;
+  6. stage breakdown of one frame per path (vertex stage + packing,
      binning, kernel, merge or deferred shading), after the counted windows;
      and the API frame's verbs one by one (best of three);
-  6. reference check, small frames on the card against the same frames on
+  7. reference check, small frames on the card against the same frames on
      the CPU: configs 1-3 (160x120) on "ref", "pallas" and "fused", configs
      4 and 5 small on "fused", and a 160x120 translucent sphere through the
      "tile" and "scan" engines: depth bit-equal, u8 within +-1, no outliers;
@@ -152,8 +172,12 @@ def bound(n_bytes: int, n_ops: int):
 def edge_pixels(bbox, bins, width) -> int:
     """Pixels whose edge functions these inputs need: over every binned
     (tile, triangle) pair, the tile's pixels inside the triangle's
-    (inclusive, frame-clamped) bbox."""
+    (inclusive, frame-clamped) bbox. The bins are a whole frame's at offset
+    (0, 0) (a band's window of a shared table is read through
+    binning.window_ids, but its tiles would need the band's origin)."""
     import torch
+
+    from dtrenderer_tpu_torch.ops.binning import window_ids
 
     counts = (bins.tile_start[1:] - bins.tile_start[:-1]).long()
     tile = torch.repeat_interleave(
@@ -161,7 +185,7 @@ def edge_pixels(bbox, bins, width) -> int:
     n_tx = -(-width // bins.tile_w)
     ty0 = (tile // n_tx) * bins.tile_h
     tx0 = (tile % n_tx) * bins.tile_w
-    bb = bbox[bins.tri_ids.long()].long()
+    bb = bbox[window_ids(bins).long()].long()
     w = (torch.minimum(bb[:, 2], tx0 + bins.tile_w - 1)
          - torch.maximum(bb[:, 0], tx0) + 1).clamp(min=0)
     h = (torch.minimum(bb[:, 3], ty0 + bins.tile_h - 1)
@@ -926,6 +950,285 @@ def stages_ordered(scene, card):
           f"binning {t_bin:.3f}, render_ordered_bins {t_k:.3f} [{card}]")
 
 
+# -------------------------------------------------------------- band paths
+
+
+def bits_equal(tag, got, want):
+    """Colour and depth of two framebuffers bit-equal (on the card)."""
+    import torch
+
+    for name in ("depth", "color"):
+        a = getattr(got, name).view(torch.int32)
+        b = getattr(want, name).to(a.device).view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs from the "
+                                 f"single-launch frame at "
+                                 f"{int((a != b).sum())} elements")
+
+
+def counted(tag, want: dict, total: dict, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after; the counts must equal `want` and are added to `total`."""
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    if got != want:
+        raise AssertionError(f"{tag}: kernel launches {got}, want {want}")
+    for k, n in got.items():
+        total[k] += n
+    return out
+
+
+def timed_frames(fn, n: int):
+    """(last result, [ms]) of n calls, host clock to a synchronise."""
+    out, times = None, []
+    for _ in range(n):
+        out, ms = timed(fn)
+        times.append(ms)
+    return out, times
+
+
+def ms_list(times) -> str:
+    return f"{', '.join(f'{t:.3f}' for t in times)} (best {min(times):.3f})"
+
+
+def same_pairs(tag, got, want, n_tris: int):
+    """Two lists of per-band Bins hold the same (tile, triangle) pairs: per
+    band the same per-tile counts and the same ids in the same order, which
+    ascend within every tile."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops import binning
+
+    n_pairs = 0
+    for b, (x, y) in enumerate(zip(got, want)):
+        cx = x.tile_start[1:] - x.tile_start[:-1]
+        cy = y.tile_start[1:] - y.tile_start[:-1]
+        ids = binning.window_ids(x)
+        if not (torch.equal(cx, cy)
+                and torch.equal(ids, binning.window_ids(y))):
+            raise AssertionError(f"{tag}: band {b}'s kept pairs differ")
+        tile = torch.repeat_interleave(
+            torch.arange(cx.numel(), device=cx.device), cx.long())
+        key = tile * n_tris + ids.long()
+        if not bool((key[1:] > key[:-1]).all()):
+            raise AssertionError(f"{tag}: band {b}'s ids do not ascend")
+        n_pairs += ids.numel()
+    return n_pairs
+
+
+def band_paths(card, cfg4, cfg5, sphere) -> dict:
+    """The band split of a frame over a mesh of devices (parallel/shard.py)
+    at full size, every cell on one of this machine's cards, cycled; every
+    path with the launch counts set to 0 just before and read just after,
+    and bit-equal to its single-launch frame. Returns the summed launches."""
+    import torch
+
+    from dtrenderer_tpu_torch.kernels import render_fused as k1
+    from dtrenderer_tpu_torch.models import scenes
+    from dtrenderer_tpu_torch.ops import binning, fb as fblib, pipeline
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.parallel import shard
+    from dtrenderer_tpu_torch.tools import dryrun
+    from dtrenderer_tpu_torch.utils.benchlib import device_time
+
+    dev = torch.device(DEVICE)
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    rows = 8
+    mesh8 = shard.make_mesh(frames=1, rows=rows)
+    mesh42 = shard.make_mesh(frames=1, rows=4, cols=2)
+    print(f"band paths: meshes 1x8x1 and 1x4x2 over "
+          f"{torch.cuda.device_count()} card(s), cycled: "
+          f"{[str(d) for d in mesh8.devices.reshape(-1)]} [{card}]")
+
+    # ---- config 5: 3840x2160, 1,000,000 triangles, 8 bands of 270 rows
+    h, w = cfg5.height, cfg5.width
+    sub = cfg5.submission(0.5)
+    d = sub.draws[0]
+    kw = dict(texture=d.texture, light=sub.light, color=d.color,
+              shading=d.shading, sampling_mode=sub.sampling_mode,
+              near_clip=sub.near_clip)
+    fb5 = fblib.clear(fblib.create(h, w, dev), [0.02, 0.02, 0.04, 1.0])
+    cut5 = shard.shard_fb(fb5, mesh8)
+    ways = [("per band", None), ("shared", dict(row_bands=rows)),
+            ("distributed", dict(row_bands=rows, band_distributed=True))]
+
+    single = {}
+    for backend, key in (("fused", "K1"), ("pallas", "K2")):
+        want = {"K1": 0, "K2": 0, "K3": 0, key: 2}
+        single[backend], times = counted(
+            f"config 5 {backend} single launch", want, total,
+            lambda: timed_frames(lambda: pipeline.draw_mesh(
+                fb5, d.mesh, d.model, sub.view_proj, backend=backend, **kw),
+                2))
+        print(f"band paths: config 5 {w}x{h} {backend}, one draw_mesh on the "
+              f"whole frame: ms {ms_list(times)} [{card}]")
+
+    def sharded5(backend, opts):
+        out = shard.draw_mesh_sharded(cut5, d.mesh, d.model, sub.view_proj,
+                                      mesh8, backend=backend,
+                                      raster_opts=opts, **kw)
+        return shard.gather_fb(out, dev)
+
+    for way, opts in ways:
+        got, times = counted(
+            f"config 5 fused, {rows} bands, {way}",
+            {"K1": 2 * rows, "K2": 0, "K3": 0}, total,
+            lambda: timed_frames(lambda: sharded5("fused", opts), 2))
+        bits_equal(f"config 5 fused, {rows} bands, {way}", got,
+                   single["fused"])
+        print(f"band paths: config 5 fused, {rows} bands of {h // rows} "
+              f"rows, {way} binning: z and colour bit-equal to the single "
+              f"launch, K1 {rows} launches a frame, ms {ms_list(times)} "
+              f"(draw_mesh_sharded + gather_fb) [{card}]")
+    # the same three ways through draw_mesh on the whole framebuffer
+    for way, opts in ways[1:] + [("per band", dict(row_bands=rows,
+                                                   band_shared=False))]:
+        got, times = counted(
+            f"config 5 draw_mesh row_bands, {way}",
+            {"K1": rows, "K2": 0, "K3": 0}, total,
+            lambda: timed_frames(lambda: pipeline.draw_mesh(
+                fb5, d.mesh, d.model, sub.view_proj, backend="fused",
+                raster_opts=opts, **kw), 1))
+        bits_equal(f"config 5 draw_mesh row_bands, {way}", got,
+                   single["fused"])
+        print(f"band paths: config 5 draw_mesh(raster_opts row_bands={rows}, "
+              f"{way}) on the whole framebuffer: bit-equal, K1 {rows} "
+              f"launches, ms {ms_list(times)} [{card}]")
+
+    # benchlib.device_time: CUDA events around a loop of calls (the host's
+    # pace counts where it outlasts the card's)
+    iters = 5
+    per_call = counted(
+        "config 5 row_bands shared, device_time",
+        {"K1": rows * (iters + 1), "K2": 0, "K3": 0}, total,
+        lambda: device_time(lambda: pipeline.draw_mesh(
+            fb5, d.mesh, d.model, sub.view_proj, backend="fused",
+            raster_opts=ways[1][1], **kw), iters=iters, warmup_iters=1))
+    whole_call = counted(
+        "config 5 single launch, device_time",
+        {"K1": iters + 1, "K2": 0, "K3": 0}, total,
+        lambda: device_time(lambda: pipeline.draw_mesh(
+            fb5, d.mesh, d.model, sub.view_proj, backend="fused", **kw),
+            iters=iters, warmup_iters=1))
+    print(f"band paths: config 5 fused, benchlib.device_time over {iters} "
+          f"back-to-back calls (CUDA events): draw_mesh row_bands={rows} "
+          f"shared {per_call * 1e3:.3f} ms a call, single launch "
+          f"{whole_call * 1e3:.3f} ms a call [{card}]")
+
+    got, times = counted(
+        f"config 5 pallas, {rows} bands", {"K1": 0, "K2": 2 * rows, "K3": 0},
+        total, lambda: timed_frames(lambda: sharded5("pallas", None), 2))
+    bits_equal(f"config 5 pallas, {rows} bands", got, single["pallas"])
+    print(f"band paths: config 5 pallas, {rows} bands, per band binning: z "
+          f"and colour bit-equal to the single launch, K2 {rows} launches a "
+          f"frame, ms {ms_list(times)} [{card}]")
+
+    # ---- the three ways of binning, alone, and their kept pairs
+    _, batch = pack_submission(cfg5)
+    n_tris = batch.coef.shape[0]
+    args = (batch.coef, batch.bbox, batch.valid, h, w)
+    whole_bins, t_whole = timed_frames(lambda: bin_batch(batch, h, w), 3)
+    bands_of = {}
+    for way, bkw in (("per band", dict(shared=False)), ("shared", {}),
+                     ("distributed", dict(distributed=True))):
+        bands_of[way], times = timed_frames(lambda: binning.bin_bands(
+            *args, rows, 0, 0, rf.TILE_H, rf.TILE_W, **bkw), 3)
+        print(f"band paths: config 5 binning alone, {rows} bands, {way}: ms "
+              f"{ms_list(times)} (whole frame, one bin_triangles: "
+              f"{ms_list(t_whole)}) [{card}]")
+    n_pairs = same_pairs("per band vs shared", bands_of["per band"],
+                         bands_of["shared"], n_tris)
+    same_pairs("distributed vs shared", bands_of["distributed"],
+               bands_of["shared"], n_tris)
+    print(f"band paths: config 5 kept pairs equal per tile, ids ascending, "
+          f"per band = shared = distributed: {n_pairs} pairs over the banded "
+          f"grid ({whole_bins.tri_ids.shape[0]} over the whole frame's)")
+
+    # ---- K1: the eight band launches back to back against the one
+    scal = rf.light_scalars(sub.light)
+    z = torch.empty((h, w), dtype=torch.float32, device=dev)
+    src = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    bh = h // rows
+
+    def band_launches():
+        for b, bins in enumerate(bands_of["shared"]):
+            ys = slice(b * bh, (b + 1) * bh)
+            k1.launch(batch.coef, batch.payload, bins.tile_start,
+                      bins.tri_ids, batch.tex_lut, scal, z[ys], src[ys], bh,
+                      w, b * bh, 0)
+
+    loop8 = (cuda_ms(band_launches, 50), cuda_ms(band_launches, 50))
+    torch.cuda.synchronize()
+    if not (torch.equal(z.view(torch.int32),
+                        single["fused"].depth.view(torch.int32))):
+        raise AssertionError("K1 band launches: z differs from the frame's")
+    loop1 = launch_loop_ms(lambda: k1.launch(
+        batch.coef, batch.payload, whole_bins.tile_start, whole_bins.tri_ids,
+        batch.tex_lut, scal, z, src, h, w, 0, 0), 50)
+    print(f"band paths: K1 config 5 launch loop, {rows} band launches "
+          f"together {loop8[0]:.4f}, {loop8[1]:.4f} ms; one whole-frame "
+          f"launch {loop1[0]:.4f}, {loop1[1]:.4f} ms [{card}]")
+
+    # ---- config 4 through render_frames_sharded, cfg4.frame's band
+    # arguments, 4 x 2 tiles of 270 x 960 (one scene per distinct card)
+    h4, w4 = cfg4.height, cfg4.width
+    frame_on = {dd: (cfg4 if dd == dev else
+                     scenes.make_config4(device=dd)).frame
+                for dd in mesh42.distinct()}
+
+    def band_fn(band_fb, t, y0, fh, fw, x0):
+        return frame_on[band_fb.depth.device](
+            band_fb.color, band_fb.depth, t, y_offset=y0, frame_height=fh,
+            frame_width=fw, x_offset=x0)
+
+    fb4 = fblib.create(h4, w4, dev)
+    t4 = torch.tensor([0.5])  # one frame: a batch of one time
+    want4 = fblib.Framebuffer(*cfg4.frame(fb4.color, fb4.depth, 0.5))
+    cut4 = shard.create_sharded_fb(h4, w4, mesh42, batch=1)
+    got, times = counted(
+        "config 4, 4 x 2 tiles", {"K1": 2 * 8, "K2": 0, "K3": 0}, total,
+        lambda: timed_frames(lambda: shard.gather_fb(
+            shard.render_frames_sharded(band_fn, cut4, mesh42, t4), dev),
+            2))
+    bits_equal("config 4, 4 x 2 tiles",
+               fblib.Framebuffer(got.color[0], got.depth[0]), want4)
+    print(f"band paths: config 4 {w4}x{h4} through render_frames_sharded, "
+          f"4 x 2 tiles of {h4 // 4}x{w4 // 2}: bit-equal to the whole "
+          f"frame, K1 8 launches a frame, ms {ms_list(times)} [{card}]")
+
+    # ---- the translucent sphere, 8 bands of 135 rows
+    hs, ws = sphere.height, sphere.width
+    subs = sphere.submission(0.5)
+    ds = subs.draws[0]
+    kws = dict(light=subs.light, color=ds.color, shading=ds.shading)
+    fbs = fblib.clear(fblib.create(hs, ws, dev), [0.02, 0.02, 0.05, 1.0])
+    cuts = shard.shard_fb(fbs, mesh8)
+    want_s, t_one = counted(
+        "sphere single launch", {"K1": 0, "K2": 0, "K3": 2}, total,
+        lambda: timed_frames(lambda: pipeline.draw_mesh_ordered(
+            fbs, ds.mesh, ds.model, subs.view_proj, **kws), 2))
+    got, times = counted(
+        f"sphere, {rows} bands", {"K1": 0, "K2": 0, "K3": 2 * rows}, total,
+        lambda: timed_frames(lambda: shard.gather_fb(
+            shard.draw_mesh_ordered_sharded(
+                cuts, ds.mesh, ds.model, subs.view_proj, mesh8, **kws), dev),
+            2))
+    bits_equal(f"sphere, {rows} bands", got, want_s)
+    print(f"band paths: translucent sphere {ws}x{hs}, {rows} bands of "
+          f"{hs // rows} rows: colour and depth bit-equal to the single "
+          f"launch, K3 {rows} launches a frame, ms {ms_list(times)} (one "
+          f"draw_mesh_ordered: {ms_list(t_one)}) [{card}]")
+
+    # ---- the dry run over 8 cells, in-process (its launches are not a
+    # path's: counted apart)
+    _, ms = timed(lambda: dryrun.dryrun_multichip(rows))
+    print(f"band paths: tools.dryrun over {rows} cells: {ms:.1f} ms "
+          f"[{card}]")
+    print(f"band paths: kernel launches {total}")
+    return total
+
+
 # --------------------------------------------------------- reference check
 
 
@@ -1115,6 +1418,8 @@ def main() -> int:
         for k, n in main_path(tag, runs, want, card).items():
             launches[k] += n
     for k, n in api_frame_path(card).items():
+        launches[k] += n
+    for k, n in band_paths(card, cfg4, cfg5, sphere).items():
         launches[k] += n
 
     stages_fused(cfg4, card)

@@ -10,10 +10,13 @@ Port of `dtrenderer_tpu/models/scenes.py`:
      texture, near_clip=False (the soup never crosses the near plane)
 
 make_configN(..., backend, device) puts the scene's meshes and textures on
-`device`; its frame(color, depth, t) renders there through `backend`
-("fused", "pallas" or "ref", as pipeline.draw_mesh) and returns (color,
-depth), and its submission(t) returns what that frame submits (for tools
-that drive the pipeline's stages one by one). Config 4 is one batched
+`device`; its frame(color, depth, t, y_offset=0, frame_height=None,
+frame_width=None, x_offset=0) renders there through `backend` ("fused",
+"pallas" or "ref", as pipeline.draw_mesh) and returns (color, depth), and
+its submission(t) returns what that frame submits (for tools that drive the
+pipeline's stages one by one). The band arguments are the reference's: when
+(color, depth) is a band or tile of the frame (parallel/shard.py), they give
+the whole frame's size and the tile's origin in it. Config 4 is one batched
 draw_meshes call on "fused" and four sequential draw_mesh calls otherwise,
 as in the reference. No scene passes raster_opts.
 """
@@ -55,7 +58,7 @@ class SceneSpec(NamedTuple):
     width: int
     height: int
     n_tris: int
-    frame: Callable       # frame(color, depth, t) -> (color, depth)
+    frame: Callable       # frame(color, depth, t, <band args>) -> (color, depth)
     submission: Callable  # submission(t) -> Submission
 
 
@@ -81,13 +84,16 @@ def head_texture(device):
 def _one_draw_frame(submission, clear_rgba, backend):
     """frame() of a one-draw scene: clear, then draw_mesh on `backend`."""
 
-    def frame(color, depth, t):
+    def frame(color, depth, t, y_offset=0, frame_height=None,
+              frame_width=None, x_offset=0):
         sub = submission(t)
         d = sub.draws[0]
         fb = _clear(color, depth, clear_rgba)
         fb = draw_mesh(fb, d.mesh, d.model, sub.view_proj, texture=d.texture,
                        light=sub.light, color=d.color, shading=d.shading,
                        sampling_mode=sub.sampling_mode, backend=backend,
+                       y_offset=y_offset, x_offset=x_offset,
+                       frame_height=frame_height, frame_width=frame_width,
                        near_clip=sub.near_clip)
         return fb.color, fb.depth
 
@@ -203,20 +209,23 @@ def make_config4(width=1920, height=1080, backend="fused", *,
         ]
         return Submission(proj, draws, light, "bilinear", True)
 
-    def frame(color, depth, t):
+    def frame(color, depth, t, y_offset=0, frame_height=None,
+              frame_width=None, x_offset=0):
         sub = submission(t)
         fb = _clear(color, depth, [0.03, 0.03, 0.06, 1.0])
+        band = dict(y_offset=y_offset, x_offset=x_offset,
+                    frame_height=frame_height, frame_width=frame_width)
         if backend == "fused":
             # one batched fused submission (bit-identical to sequential draws)
             fb = draw_meshes(fb, sub.view_proj, sub.draws, light=sub.light,
-                             sampling_mode=sub.sampling_mode)
+                             sampling_mode=sub.sampling_mode, **band)
         else:
             for d in sub.draws:
                 fb = draw_mesh(fb, d.mesh, d.model, sub.view_proj,
                                texture=d.texture, light=sub.light,
                                color=d.color, shading=d.shading,
                                sampling_mode=sub.sampling_mode,
-                               backend=backend)
+                               backend=backend, **band)
         return fb.color, fb.depth
 
     return SceneSpec("config4_multimesh_phong", width, height, n_tris, frame,

@@ -4,9 +4,22 @@ Port of the semantics of `dtrenderer_tpu/ops/binning.py`, without its TPU
 machinery: every in-frame triangle emits one (tile, triangle) pair per tile
 of its bbox's tile span, pairs are sorted on one int64 key `tile * T + id`,
 and per-tile starts come from a bincount + cumsum. Each tile's ids come out
-ascending. Nothing is dropped, so there is no capacity, small/broad split,
-pair budget or row banding (the int64 key has no 2^31 cap), and `overflow`
-is always zero; it stays in the API so FrameCounters keeps its shape.
+ascending. Nothing is dropped, so there is no capacity, small/broad split or
+pair budget (the int64 key has no 2^31 cap), and `overflow` is always zero;
+it stays in the API so FrameCounters keeps its shape.
+
+A frame cut into N row bands can be binned three ways, all with the same
+per-tile id sets:
+
+  per band     `bin_triangles` once per band, with the band's offsets;
+  shared       `bin_triangles(row_bands=N)` once over the *banded* tile grid
+               (each band's tile rows start at the band's first pixel row,
+               so a band height need not be a multiple of the tile), then
+               `band_bins` cuts band b's window out of the one table;
+  distributed  `bin_triangles_distributed`: source d of N bins its 1/N slice
+               of the triangles over the banded grid, cuts one bucket per
+               destination band, `exchange_band_buckets` hands every band
+               its buckets, and each band merges what it received.
 """
 
 from __future__ import annotations
@@ -16,9 +29,15 @@ from typing import NamedTuple
 import torch
 
 I32 = torch.int32
+I64 = torch.int64
 
 
 class Bins(NamedTuple):
+    """CSR lists of one tile grid. A band's window of a shared table
+    (`band_bins`) keeps the table's `tri_ids` and absolute offsets, so
+    `tile_start[0]` need not be 0: read a tile's ids as
+    `tri_ids[tile_start[t]:tile_start[t + 1]]`, and all of them in order
+    with `window_ids`."""
     tile_start: torch.Tensor  # i32 [n_tiles + 1] CSR offsets, tiles row-major
     tri_ids: torch.Tensor     # i32 [n_pairs] triangle ids, ascending per tile
     overflow: torch.Tensor    # i32 [] pairs dropped (always 0 here)
@@ -26,17 +45,23 @@ class Bins(NamedTuple):
     tile_w: int
 
 
-def bin_triangles(coef, bbox, valid, height: int, width: int,
-                  y_offset: int = 0, x_offset: int = 0,
-                  tile_h: int = 16, tile_w: int = 16) -> Bins:
-    """coef f32 [T,16], bbox i32 [T,4] (x0,y0,x1,y1 inclusive, frame pixels),
-    valid bool [T]. Bins the triangles that touch this [height, width] shard
-    of the frame, whose origin is (y_offset, x_offset)."""
-    T = coef.shape[0]
-    device = coef.device
-    n_ty = -(-height // tile_h)
-    n_tx = -(-width // tile_w)
-    n_tiles = n_ty * n_tx
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _emit_pairs(bbox, valid, height: int, width: int, y_offset: int,
+                x_offset: int, tile_h: int, tile_w: int, row_bands: int):
+    """One (tile, triangle) pair per tile of every in-shard triangle's bbox
+    span, over the banded tile grid of a [height, width] shard whose origin
+    is (y_offset, x_offset). Returns (tile i64 [P], tri i64 [P]); tri indexes
+    the rows of bbox."""
+    if height % row_bands:
+        raise ValueError(f"row_bands={row_bands} must divide the height "
+                         f"{height}")
+    device = bbox.device
+    band_h = height // row_bands
+    n_tyb = _ceil_div(band_h, tile_h)
+    n_tx = _ceil_div(width, tile_w)
 
     # in-shard test + bbox localisation (render_fused.prepare_draw_bins)
     in_shard = (
@@ -49,29 +74,156 @@ def bin_triangles(coef, bbox, valid, height: int, width: int,
     x1 = torch.clamp(bbox[:, 2] - x_offset, 0, width - 1)
     y1 = torch.clamp(bbox[:, 3] - y_offset, 0, height - 1)
 
+    def tile_row(y):
+        # banded grid: consecutive bands own consecutive runs of n_tyb rows
+        band = y // band_h
+        return band * n_tyb + (y - band * band_h) // tile_h
+
     tx0 = x0 // tile_w
-    ty0 = y0 // tile_h
+    ty0 = tile_row(y0)
     span_w = x1 // tile_w - tx0 + 1
-    span_h = y1 // tile_h - ty0 + 1
-    n_cover = torch.where(in_shard, span_w * span_h, 0).to(torch.int64)
+    span_h = tile_row(y1) - ty0 + 1
+    n_cover = torch.where(in_shard, span_w * span_h, 0).to(I64)
 
     # one pair per covered tile; k = the pair's index within its triangle
-    tri = torch.repeat_interleave(torch.arange(T, device=device), n_cover)
+    tri = torch.repeat_interleave(
+        torch.arange(bbox.shape[0], device=device), n_cover)
     first = torch.cumsum(n_cover, 0) - n_cover
     k = torch.arange(tri.shape[0], device=device) - first[tri]
-    sw = span_w.to(torch.int64)[tri]
-    tile = (ty0.to(torch.int64)[tri] + k // sw) * n_tx + (
-        tx0.to(torch.int64)[tri] + k % sw)
+    sw = span_w.to(I64)[tri]
+    tile = (ty0.to(I64)[tri] + k // sw) * n_tx + (tx0.to(I64)[tri] + k % sw)
+    return tile, tri
 
-    key = torch.sort(tile * T + tri).values
-    tile_sorted = key // T
+
+def _csr(key, n_tris: int, n_tiles: int, tile_h: int, tile_w: int) -> Bins:
+    """Bins of sorted keys `tile * n_tris + id` over tiles 0..n_tiles-1."""
+    device = key.device
+    tile_sorted = key // n_tris
     counts = torch.bincount(tile_sorted, minlength=n_tiles)
-    tile_start = torch.zeros(n_tiles + 1, dtype=torch.int64, device=device)
+    tile_start = torch.zeros(n_tiles + 1, dtype=I64, device=device)
     tile_start[1:] = torch.cumsum(counts, 0)
     return Bins(
         tile_start=tile_start.to(I32),
-        tri_ids=(key - tile_sorted * T).to(I32),
+        tri_ids=(key - tile_sorted * n_tris).to(I32),
         overflow=torch.zeros((), dtype=I32, device=device),
         tile_h=tile_h,
         tile_w=tile_w,
     )
+
+
+def bin_triangles(coef, bbox, valid, height: int, width: int,
+                  y_offset: int = 0, x_offset: int = 0,
+                  tile_h: int = 16, tile_w: int = 16,
+                  row_bands: int = 1) -> Bins:
+    """coef f32 [T,16], bbox i32 [T,4] (x0,y0,x1,y1 inclusive, frame pixels),
+    valid bool [T]. Bins the triangles that touch this [height, width] shard
+    of the frame, whose origin is (y_offset, x_offset).
+
+    row_bands > 1 bins over the banded grid of the shard's N row bands
+    (band_h = height // N, ceil(band_h / tile_h) tile rows per band, band
+    after band): the shared table whose windows `band_bins` cuts."""
+    T = coef.shape[0]
+    tile, tri = _emit_pairs(bbox, valid, height, width, y_offset, x_offset,
+                            tile_h, tile_w, row_bands)
+    key = torch.sort(tile * T + tri).values
+    n_tiles = (row_bands * _ceil_div(height // row_bands, tile_h)
+               * _ceil_div(width, tile_w))
+    return _csr(key, T, n_tiles, tile_h, tile_w)
+
+
+def band_bins(bins: Bins, band_index: int, row_bands: int) -> Bins:
+    """Band `band_index`'s window of a shared table made with
+    bin_triangles(row_bands=N): its run of tile_start (a view, absolute
+    offsets) over the table's own tri_ids. Nothing is copied."""
+    n_tiles = bins.tile_start.shape[0] - 1
+    if n_tiles % row_bands or not 0 <= band_index < row_bands:
+        raise ValueError(f"band {band_index} of {row_bands} does not cut a "
+                         f"table of {n_tiles} tiles")
+    per_band = n_tiles // row_bands
+    lo = band_index * per_band
+    return bins._replace(tile_start=bins.tile_start[lo:lo + per_band + 1])
+
+
+def window_ids(bins: Bins):
+    """The ids of every pair of these bins, tile after tile (all of tri_ids,
+    or the run a band's window points at)."""
+    lo, hi = bins.tile_start[[0, -1]].tolist()
+    return bins.tri_ids[lo:hi]
+
+
+def exchange_band_buckets(buckets, devices):
+    """The band exchange of the distributed binning, the port's all_to_all:
+    buckets[src][dst] is what source src holds for band dst (on src's
+    device); returns per destination the concatenation of every source's
+    bucket, in source order, on devices[dst]. A bucket that already lies on
+    its destination's device is not copied."""
+    return [
+        torch.cat([per_src[dst].to(devices[dst], non_blocking=True)
+                   for per_src in buckets])
+        for dst in range(len(devices))
+    ]
+
+
+def bin_triangles_distributed(bboxes, valids, height: int, width: int,
+                              row_bands: int, y_offset: int = 0,
+                              x_offset: int = 0, tile_h: int = 16,
+                              tile_w: int = 16) -> list[Bins]:
+    """Distributed cross-band binning of a [height, width] frame cut into N =
+    row_bands bands. bboxes[d], valids[d] are band d's replica of the
+    scene's bbox i32 [T,4] and valid bool [T], on band d's device (one
+    tensor may serve several bands of a device).
+
+    Source d emits and sorts the pairs of triangles [d*S, (d+1)*S), S =
+    ceil(T / N), over the whole banded grid with global ids, and cuts the
+    sorted keys (band-major) into one ragged bucket per destination band;
+    `exchange_band_buckets` moves them; band b sorts what it received into
+    its own CSR. Returns the N bands' Bins, each on its band's device, with
+    the per-tile id sets of bin_triangles(row_bands=N). The reference's fixed
+    bucket size, broad-triangle list, all_gather and psum are capacity
+    machinery of its TPU form and have no counterpart."""
+    N = row_bands
+    if len(bboxes) != N or len(valids) != N:
+        raise ValueError(f"need one bbox/valid replica per band ({N}), got "
+                         f"{len(bboxes)}/{len(valids)}")
+    T = bboxes[0].shape[0]
+    per_band = _ceil_div(height // N, tile_h) * _ceil_div(width, tile_w)
+    slice_len = _ceil_div(T, N)
+    buckets = []
+    for d in range(N):
+        lo, hi = min(d * slice_len, T), min((d + 1) * slice_len, T)
+        tile, tri = _emit_pairs(bboxes[d][lo:hi], valids[d][lo:hi], height,
+                                width, y_offset, x_offset, tile_h, tile_w, N)
+        key = torch.sort(tile * T + (tri + lo)).values
+        band_keys = torch.arange(N + 1, device=key.device) * (per_band * T)
+        cuts = torch.searchsorted(key, band_keys).tolist()
+        buckets.append([key[cuts[b]:cuts[b + 1]] for b in range(N)])
+    received = exchange_band_buckets(buckets, [b.device for b in bboxes])
+    return [
+        _csr(torch.sort(keys).values - b * per_band * T, T, per_band, tile_h,
+             tile_w)
+        for b, keys in enumerate(received)
+    ]
+
+
+def bin_bands(coef, bbox, valid, height: int, width: int, row_bands: int,
+              y_offset: int = 0, x_offset: int = 0, tile_h: int = 16,
+              tile_w: int = 16, shared: bool = True,
+              distributed: bool = False) -> list[Bins]:
+    """The N bands' Bins of a [height, width] frame on one device, by one of
+    the three ways: distributed (every source and every band on this
+    device), the shared table's windows, or one bin_triangles per band."""
+    if height % row_bands:
+        raise ValueError(f"row_bands={row_bands} must divide the height "
+                         f"{height}")
+    if distributed:
+        return bin_triangles_distributed(
+            [bbox] * row_bands, [valid] * row_bands, height, width,
+            row_bands, y_offset, x_offset, tile_h, tile_w)
+    if shared:
+        table = bin_triangles(coef, bbox, valid, height, width, y_offset,
+                              x_offset, tile_h, tile_w, row_bands)
+        return [band_bins(table, b, row_bands) for b in range(row_bands)]
+    band_h = height // row_bands
+    return [bin_triangles(coef, bbox, valid, band_h, width,
+                          y_offset + b * band_h, x_offset, tile_h, tile_w)
+            for b in range(row_bands)]

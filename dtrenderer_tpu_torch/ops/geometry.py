@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from dtrenderer_tpu_torch.utils.math3d import homogenize, transform_points
+
 F32 = torch.float32
 I32 = torch.int32
 
@@ -26,6 +28,23 @@ class TriSetup(NamedTuple):
     coef: torch.Tensor   # f32 [T, 16] packed per-triangle setup
     bbox: torch.Tensor   # i32 [T, 4]  (x0, y0, x1, y1) inclusive, clamped to frame
     valid: torch.Tensor  # bool [T]
+
+
+def vertex_transform(verts3, mvp, width, height):
+    """[N,3] model-space verts -> [N,4] screen (sx, sy, sz01, q=1/w_clip),
+    the viewport mapping of FORMULAS.md (corners_to_screen on the clip
+    positions). Vertices with w_clip <= 1e-6 get q=0; triangle_setup drops
+    their triangles."""
+    return corners_to_screen(
+        transform_points(homogenize(verts3.to(F32)), mvp), width, height)
+
+
+def triangle_setup(screen, faces, width, height, cull_backfaces=True):
+    """TriSetup from screen-space verts [N,4] and face indices [T,3]."""
+    faces = faces.to(torch.int64)
+    return triangle_setup_from_corners(
+        screen[faces[:, 0]], screen[faces[:, 1]], screen[faces[:, 2]], width,
+        height, cull_backfaces)
 
 
 def _edge_coef(ax, ay, bx, by):

@@ -15,9 +15,18 @@ vertex stage and the binning, then one kernel launch, then the merge:
   ordered kernel (ops/raster_ordered.py, engine "tile"), or the reference's
   per-triangle loop (engine "scan").
 
-Any `raster_opts` or `ordered_opts` key raises NotImplementedError: they are
-the reference's TPU binning and kernel knobs, and the port's kernels take
-none.
+`raster_opts` on backend "fused" takes the reference's four band keys
+(`row_bands`, `band_index`, `band_shared`, `band_distributed`: a frame cut
+into row bands, binned per band, through one shared table or through the
+distributed exchange of ops/binning.py; every way gives the bits of the
+single launch). Any other `raster_opts` or `ordered_opts` key raises
+NotImplementedError: they are the reference's TPU binning and kernel knobs,
+and the port's kernels take none.
+
+A draw is staged once (`stage_draw_mesh`, `stage_draw_mesh_ordered`: the
+vertex stage, which no shard of the frame changes) and rastered per shard
+(`raster_staged`); parallel/shard.py stages once per device and rasters once
+per band.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ import torch
 from dtrenderer_tpu_torch.debug import FrameCounters
 from dtrenderer_tpu_torch.models.primitives import white_texture
 from dtrenderer_tpu_torch.ops import geometry, sampling
-from dtrenderer_tpu_torch.ops.binning import bin_triangles
+from dtrenderer_tpu_torch.ops.binning import (
+    Bins, band_bins, bin_bands, bin_triangles,
+)
 from dtrenderer_tpu_torch.ops.fb import Framebuffer
 from dtrenderer_tpu_torch.ops.raster_ordered import render_ordered
 from dtrenderer_tpu_torch.ops.raster_pallas import rasterize_pallas
@@ -44,19 +55,11 @@ from dtrenderer_tpu_torch.ops.shading import (
 )
 from dtrenderer_tpu_torch.utils.color import blend_over
 from dtrenderer_tpu_torch.utils.math3d import (
-    homogenize, mat4mul, transform_directions, transform_points,
+    cross, homogenize, mat4mul, transform_directions, transform_points,
 )
 
 F32 = torch.float32
 SAMPLING_MODES = ("nearest", "bilinear")
-
-
-def _cross(a, b):
-    """Cross product in the reference's op order (a1*b2 - a2*b1, ...)."""
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
-                        a0 * b1 - a1 * b0], dim=-1)
 
 
 def gather_corner_data(mesh, model, mvp, normal_mat, light: Light, color,
@@ -91,7 +94,7 @@ def gather_corner_data(mesh, model, mvp, normal_mat, light: Light, color,
     zeros3 = torch.zeros((T, 3, 3), dtype=F32, device=device)
     if shading == SHADING_FLAT:
         w0, w1, w2 = g[:, 0, 6:9], g[:, 1, 6:9], g[:, 2, 6:9]
-        term = light_term(_cross(w1 - w0, w2 - w0), light)
+        term = light_term(cross(w1 - w0, w2 - w0), light)
         corner_rgba = apply_light(color.expand(T, 3, 4), term[:, None])
         nq = zeros3
     elif shading == SHADING_GOURAUD:
@@ -176,11 +179,42 @@ BACKENDS = ("ref", "pallas", "fused")
 ORDERED_ENGINES = ("tile", "scan")
 
 
-def _check_opts(name: str, opts):
-    if opts:
+BAND_OPTS = ("row_bands", "band_index", "band_shared", "band_distributed")
+
+
+def _check_opts(name: str, opts, allowed=()):
+    unknown = sorted(k for k in (opts or {}) if k not in allowed)
+    if unknown:
         raise NotImplementedError(
-            f"{name} {sorted(opts)} are the reference's TPU binning/kernel "
+            f"{name} {unknown} are the reference's TPU binning/kernel "
             f"knobs; the port's kernels take none")
+
+
+class BandOpts(NamedTuple):
+    """raster_opts' band keys (backend "fused"). row_bands > 1 cuts the frame
+    into that many row bands; band_index names the one band this framebuffer
+    is (None: the framebuffer is the whole frame, every band is rendered);
+    shared bins through one table over the banded tile grid, not shared
+    bins band by band; distributed bins through the band exchange."""
+    row_bands: int = 1
+    band_index: int | None = None
+    shared: bool = True
+    distributed: bool = False
+
+
+def band_opts(raster_opts, fused: bool = True) -> BandOpts:
+    """Parse raster_opts; as in the reference the other band keys mean
+    nothing without row_bands > 1."""
+    _check_opts("raster_opts", raster_opts, BAND_OPTS if fused else ())
+    opts = raster_opts or {}
+    row_bands = int(opts.get("row_bands", 1) or 1)
+    if row_bands <= 1:
+        return BandOpts()
+    band_index = opts.get("band_index")
+    return BandOpts(row_bands,
+                    None if band_index is None else int(band_index),
+                    bool(opts.get("band_shared", True)),
+                    bool(opts.get("band_distributed", False)))
 
 
 def _check_sampling(sampling_mode: str):
@@ -228,11 +262,14 @@ def pack_draws(draws, view_proj, light: Light, sampling_mode: str,
 
 
 def _render_and_merge(fb: Framebuffer, batch: DrawBatch, light: Light,
-                      y_offset: int, x_offset: int, return_counters: bool):
-    """Bin, launch the fused kernel once, and merge into the framebuffer."""
+                      y_offset: int, x_offset: int, return_counters: bool,
+                      bins: Bins | None = None):
+    """Bin (unless the caller brings this shard's Bins), launch the fused
+    kernel once, and merge into the framebuffer."""
     h, w = fb.depth.shape
-    bins = bin_triangles(batch.coef, batch.bbox, batch.valid, h, w, y_offset,
-                         x_offset, TILE_H, TILE_W)
+    if bins is None:
+        bins = bin_triangles(batch.coef, batch.bbox, batch.valid, h, w,
+                             y_offset, x_offset, TILE_H, TILE_W)
     z, src, overflow = render_fused(batch.coef, batch.payload, bins,
                                     batch.tex_lut, light, h, w, y_offset,
                                     x_offset)
@@ -250,6 +287,76 @@ def _render_and_merge(fb: Framebuffer, batch: DrawBatch, light: Light,
         pixels_shaded=win.sum(dtype=torch.int32),
         bin_overflow=overflow,
     )
+
+
+def merge_band_counters(counters) -> FrameCounters:
+    """FrameCounters of a frame from its bands' (or tiles'): the triangle
+    counts are the scene's and the same in every band, so they are taken
+    once; shaded pixels and dropped pairs add up, on the first band's
+    device."""
+    first = counters[0]
+    device = first.pixels_shaded.device
+
+    def total(xs):
+        return torch.stack([x.to(device) for x in xs]).sum(dtype=torch.int32)
+
+    return FrameCounters(
+        tris_submitted=first.tris_submitted,
+        tris_valid=first.tris_valid,
+        pixels_shaded=total([c.pixels_shaded for c in counters]),
+        bin_overflow=total([c.bin_overflow for c in counters]),
+    )
+
+
+def _render_banded(fb: Framebuffer, batch: DrawBatch, light: Light,
+                   y_offset: int, x_offset: int, frame_h: int,
+                   bands: BandOpts, return_counters: bool):
+    """The fused draw of a frame cut into bands.row_bands row bands
+    (raster_opts row_bands > 1). With a band_index the framebuffer is that
+    one band of the frame and y_offset its first row in the frame;
+    otherwise the framebuffer is the whole frame and every band is
+    rendered, one kernel launch each, from Bins made by the way the opts
+    name (binning.bin_bands)."""
+    h, w = fb.depth.shape
+    n = bands.row_bands
+    coef, bbox, valid = batch.coef, batch.bbox, batch.valid
+    if bands.band_index is not None:
+        if bands.distributed:
+            raise ValueError(
+                "band_distributed with a band_index: one band cannot run "
+                "the exchange alone; parallel.shard.draw_mesh_sharded runs "
+                "it across the mesh, and a whole framebuffer without "
+                "band_index on one device")
+        if frame_h != h * n:
+            raise ValueError(f"band_index render: frame_height {frame_h} != "
+                             f"band_h * row_bands ({h * n})")
+        if bands.shared:
+            y_frame = y_offset - bands.band_index * h
+            table = bin_triangles(coef, bbox, valid, h * n, w, y_frame,
+                                  x_offset, TILE_H, TILE_W, n)
+            bins = band_bins(table, bands.band_index, n)
+        else:
+            bins = None
+        return _render_and_merge(fb, batch, light, y_offset, x_offset,
+                                 return_counters, bins)
+
+    if h % n:
+        raise ValueError(f"row_bands={n} must divide the frame height {h}")
+    band_h = h // n
+    all_bins = bin_bands(coef, bbox, valid, h, w, n, y_offset, x_offset,
+                         TILE_H, TILE_W, bands.shared, bands.distributed)
+    outs = []
+    for b, bins in enumerate(all_bins):
+        rows = slice(b * band_h, (b + 1) * band_h)
+        outs.append(_render_and_merge(
+            Framebuffer(fb.color[rows], fb.depth[rows]), batch, light,
+            y_offset + b * band_h, x_offset, return_counters, bins))
+    fbs = [o[0] for o in outs] if return_counters else outs
+    out = Framebuffer(color=torch.cat([f.color for f in fbs]),
+                      depth=torch.cat([f.depth for f in fbs]))
+    if not return_counters:
+        return out
+    return out, merge_band_counters([o[1] for o in outs])
 
 
 def _shade_fragments(ip, texture, sampling_mode: str, shading: str,
@@ -294,14 +401,146 @@ def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
     return Framebuffer(color=color, depth=torch.where(win, z, fb.depth))
 
 
-def _finish_draw(out, fb, mesh, setup, z, tri, overflow, return_counters):
+class StagedDraw(NamedTuple):
+    """The vertex stage of one draw_mesh / draw_mesh_ordered call: what every
+    shard of the frame shares. route "fused" and "tile" carry a packed
+    DrawBatch; "pallas", "ref" and "scan" the setup, the corner attributes
+    and the texture that shade_deferred / the scan loop read."""
+    route: str            # one of BACKENDS or ORDERED_ENGINES
+    light: Light
+    n_submitted: int      # FrameCounters.tris_submitted of the draw
+    batch: DrawBatch | None = None
+    setup: geometry.TriSetup | None = None
+    attrs10: torch.Tensor | None = None
+    texture: torch.Tensor | None = None
+    sampling_mode: str = "nearest"
+    shading: str = SHADING_GOURAUD
+    window: tuple[int, int] | None = None
+    bands: BandOpts = BandOpts()
+
+
+def _stage(route, device, mesh, model, view_proj, frame_height, frame_width,
+           texture, light, color, shading, sampling_mode, cull_backfaces,
+           normal_mat, mvp, near_clip, **more) -> StagedDraw:
+    _check_sampling(sampling_mode)
+    if light is None:
+        light = make_light(device=device)
+    if route in ("fused", "tile"):
+        spec = DrawSpec(mesh, model, texture=texture, color=color,
+                        shading=shading, normal_mat=normal_mat)
+        batch = pack_draws([spec], view_proj, light, sampling_mode,
+                           frame_width, frame_height, cull_backfaces,
+                           near_clip, mvps=None if mvp is None else [mvp])
+        return StagedDraw(route, light, batch.coef.shape[0], batch=batch,
+                          **more)
+    if mvp is None:
+        mvp = mat4mul(view_proj, model)
+    setup, attrs10 = prepare_draw(
+        mesh, model, view_proj, mvp,
+        normal_mat if normal_mat is not None else model, light, color,
+        shading, frame_width, frame_height, cull_backfaces, near_clip)
+    if texture is None:
+        texture = white_texture(device=device)
+    n = setup.coef.shape[0] if route == "scan" else mesh.faces.shape[0]
+    return StagedDraw(route, light, n, setup=setup, attrs10=attrs10,
+                      texture=texture, sampling_mode=sampling_mode,
+                      shading=shading, **more)
+
+
+def stage_draw_mesh(device, mesh, model, view_proj, frame_height: int,
+                    frame_width: int, texture=None, light: Light | None = None,
+                    color=(1.0, 1.0, 1.0, 1.0), shading: str = SHADING_GOURAUD,
+                    sampling_mode: str = "nearest",
+                    cull_backfaces: bool = True, normal_mat=None,
+                    backend: str = "ref", mvp=None,
+                    raster_opts: dict | None = None,
+                    near_clip: bool = True) -> StagedDraw:
+    """draw_mesh's checks and vertex stage for a frame of [frame_height,
+    frame_width] pixels, with the scene inputs on `device`; draw_mesh's own
+    keywords and defaults. raster_staged then renders any shard of that
+    frame."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    bands = band_opts(raster_opts, backend == "fused")
+    return _stage(backend, device, mesh, model, view_proj, frame_height,
+                  frame_width, texture, light, color, shading, sampling_mode,
+                  cull_backfaces, normal_mat, mvp, near_clip, bands=bands)
+
+
+def stage_draw_mesh_ordered(device, mesh, model, view_proj,
+                            frame_height: int, frame_width: int, texture=None,
+                            light: Light | None = None,
+                            color=(1.0, 1.0, 1.0, 1.0),
+                            shading: str = SHADING_GOURAUD,
+                            sampling_mode: str = "nearest",
+                            cull_backfaces: bool = True, normal_mat=None,
+                            mvp=None, near_clip: bool = True,
+                            window: tuple[int, int] | None = (64, 128),
+                            engine: str = "auto",
+                            raster_opts: dict | None = None) -> StagedDraw:
+    """draw_mesh_ordered's checks and vertex stage, as stage_draw_mesh."""
+    if engine == "auto":
+        engine = "tile"
+    if engine not in ORDERED_ENGINES:
+        raise ValueError(f"unknown ordered engine {engine!r}")
+    _check_opts("raster_opts", raster_opts)
+    return _stage(engine, device, mesh, model, view_proj, frame_height,
+                  frame_width, texture, light, color, shading, sampling_mode,
+                  cull_backfaces, normal_mat, mvp, near_clip, window=window)
+
+
+def raster_staged(fb: Framebuffer, staged: StagedDraw, y_offset: int = 0,
+                  x_offset: int = 0, return_counters: bool = False,
+                  bins: Bins | None = None):
+    """Raster, shade and merge a staged draw into fb, the shard at (y_offset,
+    x_offset) of the frame the draw was staged for. `bins` (route "fused"
+    only) are this shard's ready Bins; without them the shard is binned
+    here."""
+    h, w = fb.depth.shape
+    route, light = staged.route, staged.light
+    if route == "fused":
+        return _render_and_merge(fb, staged.batch, light, y_offset, x_offset,
+                                 return_counters, bins)
+    if bins is not None:
+        raise ValueError(f"ready bins are for the fused route, not {route!r}")
+    zero = torch.zeros((), dtype=torch.int32, device=fb.depth.device)
+    if route in ORDERED_ENGINES:
+        if route == "tile":
+            batch = staged.batch
+            color_o, depth_o, overflow = render_ordered(
+                batch.coef, batch.bbox, batch.valid, batch.payload,
+                batch.tex_lut, light, fb.color, fb.depth, h, w, y_offset,
+                x_offset)
+            valid = batch.valid
+        else:
+            color_o, depth_o = _draw_scan(
+                fb, staged.setup, staged.attrs10, staged.texture,
+                staged.sampling_mode, staged.shading, light, staged.window,
+                y_offset, x_offset)
+            overflow, valid = zero, staged.setup.valid
+        out = Framebuffer(color=color_o, depth=depth_o)
+        shaded = depth_o < fb.depth
+    else:
+        setup = staged.setup
+        if route == "ref":
+            z, tri = rasterize_ref(setup.coef, setup.valid, h, w,
+                                   y_offset=y_offset, x_offset=x_offset)
+            overflow = zero
+        else:
+            z, tri, overflow = rasterize_pallas(setup.coef, setup.bbox,
+                                                setup.valid, h, w, y_offset,
+                                                x_offset)
+        out = shade_deferred(fb, z, tri, setup.coef, staged.attrs10,
+                             staged.texture, staged.sampling_mode,
+                             staged.shading, light, y_offset, x_offset)
+        shaded, valid = (tri >= 0) & (z < fb.depth), setup.valid
     if not return_counters:
         return out
     return out, FrameCounters(
-        tris_submitted=torch.tensor(mesh.faces.shape[0], dtype=torch.int32,
-                                    device=z.device),
-        tris_valid=setup.valid.sum(dtype=torch.int32),
-        pixels_shaded=((tri >= 0) & (z < fb.depth)).sum(dtype=torch.int32),
+        tris_submitted=torch.tensor(staged.n_submitted, dtype=torch.int32,
+                                    device=fb.depth.device),
+        tris_valid=valid.sum(dtype=torch.int32),
+        pixels_shaded=shaded.sum(dtype=torch.int32),
         bin_overflow=overflow,
     )
 
@@ -336,45 +575,26 @@ def draw_mesh(
     shade_deferred); all three give the same image. When fb is a band/tile
     of a larger frame, pass the full frame dims (frame_height/frame_width)
     and this shard's origin (y_offset/x_offset).
+
+    raster_opts (backend "fused"): row_bands=N renders the frame as N row
+    bands, one launch each, bit-equal to the single launch; band_shared
+    (default True) bins them through one shared table, False band by band;
+    band_distributed=True through the distributed exchange; band_index=b
+    says that fb is band b alone (frame_height = fb height * N).
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
-    _check_opts("raster_opts", raster_opts)
-    _check_sampling(sampling_mode)
     h, w = fb.depth.shape
     fh = frame_height if frame_height is not None else h
     fw = frame_width if frame_width is not None else w
-    if light is None:
-        light = make_light(device=fb.depth.device)
-    if backend == "fused":
-        spec = DrawSpec(mesh, model, texture=texture, color=color,
-                        shading=shading, normal_mat=normal_mat)
-        batch = pack_draws([spec], view_proj, light, sampling_mode, fw, fh,
-                           cull_backfaces, near_clip,
-                           mvps=None if mvp is None else [mvp])
-        return _render_and_merge(fb, batch, light, y_offset, x_offset,
-                                 return_counters)
-
-    if mvp is None:
-        mvp = mat4mul(view_proj, model)
-    setup, attrs10 = prepare_draw(
-        mesh, model, view_proj, mvp,
-        normal_mat if normal_mat is not None else model, light, color,
-        shading, fw, fh, cull_backfaces, near_clip)
-    if backend == "ref":
-        z, tri = rasterize_ref(setup.coef, setup.valid, h, w,
-                               y_offset=y_offset, x_offset=x_offset)
-        overflow = torch.zeros((), dtype=torch.int32, device=z.device)
-    else:
-        z, tri, overflow = rasterize_pallas(setup.coef, setup.bbox,
-                                            setup.valid, h, w, y_offset,
-                                            x_offset)
-    if texture is None:
-        texture = white_texture(device=fb.depth.device)
-    out = shade_deferred(fb, z, tri, setup.coef, attrs10, texture,
-                         sampling_mode, shading, light, y_offset, x_offset)
-    return _finish_draw(out, fb, mesh, setup, z, tri, overflow,
-                        return_counters)
+    staged = stage_draw_mesh(
+        fb.depth.device, mesh, model, view_proj, fh, fw, texture=texture,
+        light=light, color=color, shading=shading,
+        sampling_mode=sampling_mode, cull_backfaces=cull_backfaces,
+        normal_mat=normal_mat, backend=backend, mvp=mvp,
+        raster_opts=raster_opts, near_clip=near_clip)
+    if staged.bands.row_bands > 1:
+        return _render_banded(fb, staged.batch, staged.light, y_offset,
+                              x_offset, fh, staged.bands, return_counters)
+    return raster_staged(fb, staged, y_offset, x_offset, return_counters)
 
 
 def draw_mesh_ordered(
@@ -417,52 +637,16 @@ def draw_mesh_ordered(
 
     return_counters: also return FrameCounters (bin_overflow always 0).
     """
-    if engine == "auto":
-        engine = "tile"
-    if engine not in ORDERED_ENGINES:
-        raise ValueError(f"unknown ordered engine {engine!r}")
-    _check_opts("raster_opts", raster_opts)
-    _check_sampling(sampling_mode)
     h, w = fb.depth.shape
-    fh = frame_height if frame_height is not None else h
-    fw = frame_width if frame_width is not None else w
-    if light is None:
-        light = make_light(device=fb.depth.device)
-
-    if engine == "tile":
-        spec = DrawSpec(mesh, model, texture=texture, color=color,
-                        shading=shading, normal_mat=normal_mat)
-        batch = pack_draws([spec], view_proj, light, sampling_mode, fw, fh,
-                           cull_backfaces, near_clip,
-                           mvps=None if mvp is None else [mvp])
-        color_o, depth_o, overflow = render_ordered(
-            batch.coef, batch.bbox, batch.valid, batch.payload, batch.tex_lut,
-            light, fb.color, fb.depth, h, w, y_offset, x_offset)
-        n_rows, valid = batch.coef.shape[0], batch.valid
-    else:
-        if mvp is None:
-            mvp = mat4mul(view_proj, model)
-        setup, attrs10 = prepare_draw(
-            mesh, model, view_proj, mvp,
-            normal_mat if normal_mat is not None else model, light, color,
-            shading, fw, fh, cull_backfaces, near_clip)
-        if texture is None:
-            texture = white_texture(device=fb.depth.device)
-        color_o, depth_o = _draw_scan(fb, setup, attrs10, texture,
-                                      sampling_mode, shading, light, window,
-                                      y_offset, x_offset)
-        overflow = torch.zeros((), dtype=torch.int32, device=fb.depth.device)
-        n_rows, valid = setup.coef.shape[0], setup.valid
-    out = Framebuffer(color=color_o, depth=depth_o)
-    if not return_counters:
-        return out
-    return out, FrameCounters(
-        tris_submitted=torch.tensor(n_rows, dtype=torch.int32,
-                                    device=depth_o.device),
-        tris_valid=valid.sum(dtype=torch.int32),
-        pixels_shaded=(depth_o < fb.depth).sum(dtype=torch.int32),
-        bin_overflow=overflow,
-    )
+    staged = stage_draw_mesh_ordered(
+        fb.depth.device, mesh, model, view_proj,
+        frame_height if frame_height is not None else h,
+        frame_width if frame_width is not None else w, texture=texture,
+        light=light, color=color, shading=shading,
+        sampling_mode=sampling_mode, cull_backfaces=cull_backfaces,
+        normal_mat=normal_mat, mvp=mvp, near_clip=near_clip, window=window,
+        engine=engine, raster_opts=raster_opts)
+    return raster_staged(fb, staged, y_offset, x_offset, return_counters)
 
 
 def _draw_scan(fb: Framebuffer, setup, attrs, texture, sampling_mode: str,
@@ -536,8 +720,9 @@ def draw_meshes(
     the run (FORMULAS.md). Each translucent draw goes through
     draw_mesh_ordered (engine `ordered_engine`), blending over everything
     before it and writing depth. Counters of all segments are merged.
+    raster_opts' band keys (draw_mesh) apply to the opaque runs.
     """
-    _check_opts("raster_opts", raster_opts)
+    bands = band_opts(raster_opts)
     _check_opts("ordered_opts", ordered_opts)
     _check_sampling(sampling_mode)
     h, w = fb.depth.shape
@@ -570,11 +755,107 @@ def draw_meshes(
         else:
             batch = pack_draws(seg, view_proj, light, sampling_mode, fw, fh,
                                cull_backfaces, near_clip)
-            res = _render_and_merge(out, batch, light, y_offset, x_offset,
-                                    return_counters)
+            if bands.row_bands > 1:
+                res = _render_banded(out, batch, light, y_offset, x_offset,
+                                     fh, bands, return_counters)
+            else:
+                res = _render_and_merge(out, batch, light, y_offset,
+                                        x_offset, return_counters)
         if return_counters:
             out, c = res
             counters = counters.merge(c)
         else:
             out = res
     return (out, counters) if return_counters else out
+
+
+# ------------------------------------------------------------------ audits
+# The reference's pre-flight audits count what its fixed-capacity bins would
+# drop. The port's bins drop nothing, so every overflow is 0 and every
+# budget key is None; what stays is the description of the scene: the
+# deepest tile, and per band the triangles and (tile, triangle) pairs.
+
+
+def _audit_setup(view_proj, draws, height, width, light, cull_backfaces,
+                 near_clip):
+    """coef, bbox, valid of every draw's setup rows, concatenated."""
+    if light is None:
+        light = make_light(device=view_proj.device)
+    setups = [
+        prepare_draw(d.mesh, d.model, view_proj, mat4mul(view_proj, d.model),
+                     d.normal_mat if d.normal_mat is not None else d.model,
+                     light, d.color, d.shading, width, height,
+                     cull_backfaces, near_clip)[0]
+        for d in draws]
+    return (torch.cat([s.coef for s in setups]),
+            torch.cat([s.bbox for s in setups]),
+            torch.cat([s.valid for s in setups]))
+
+
+def _max_count(bins: Bins) -> int:
+    return int((bins.tile_start[1:] - bins.tile_start[:-1]).max())
+
+
+def audit_scene(view_proj, draws, height, width, light=None,
+                cull_backfaces=True, near_clip=True,
+                raster_opts: dict | None = None):
+    """Binning audit of a batched scene (not on the frame's path): returns
+    (overflow, max_count, capacity) as the reference does, with overflow
+    always 0 and capacity None: the CSR bins have none. max_count is the
+    deepest 16x16 tile's triangle count over the whole frame."""
+    band_opts(raster_opts)
+    coef, bbox, valid = _audit_setup(view_proj, draws, height, width, light,
+                                     cull_backfaces, near_clip)
+    bins = bin_triangles(coef, bbox, valid, height, width, 0, 0, TILE_H,
+                         TILE_W)
+    return int(bins.overflow), _max_count(bins), None
+
+
+def audit_bands(view_proj, draws, height, width, n_bands: int, light=None,
+                cull_backfaces=True, near_clip=True,
+                raster_opts: dict | None = None):
+    """Audit of a banded/sharded render: runs the binning the banded render
+    would run (the shared table when raster_opts selects it, else band by
+    band) and returns the reference's dict:
+      n_bands, band_h
+      shared          True when raster_opts selects the shared table
+      band_tris       [n_bands] valid triangles whose bbox touches each band
+      band_pairs      [n_bands] binned (tile, triangle) pairs of each band
+      shard_budget, pair_budget       None (the port has no budgets)
+      shard_overflow, pair_overflow   0 (nothing is dropped)
+      ok              True
+    """
+    if height % n_bands:
+        raise ValueError(f"n_bands={n_bands} must divide the frame height "
+                         f"{height}")
+    band_h = height // n_bands
+    bands = band_opts(raster_opts)
+    shared = bands.row_bands > 1 and bands.shared and not bands.distributed
+    coef, bbox, valid = _audit_setup(view_proj, draws, height, width, light,
+                                     cull_backfaces, near_clip)
+    all_bins = bin_bands(coef, bbox, valid, height, width, n_bands, 0, 0,
+                         TILE_H, TILE_W, shared)
+    band_tris, band_pairs = [], []
+    for b, bins in enumerate(all_bins):
+        y0, y1 = b * band_h, (b + 1) * band_h - 1
+        band_tris.append(int((valid & (bbox[:, 3] >= y0)
+                              & (bbox[:, 1] <= y1)).sum()))
+        band_pairs.append(int(bins.tile_start[-1] - bins.tile_start[0]))
+    overflow = sum(int(bins.overflow) for bins in all_bins)
+    return dict(
+        n_bands=n_bands, band_h=band_h, shared=shared, shard_budget=None,
+        band_tris=band_tris, shard_overflow=0, pair_budget=None,
+        band_pairs=band_pairs, pair_overflow=overflow, ok=overflow == 0,
+    )
+
+
+def audit_ordered(view_proj, mesh, model, height, width, light=None,
+                  cull_backfaces=True, near_clip=True,
+                  raster_opts: dict | None = None):
+    """Audit of the ordered tile engine (draw_mesh_ordered engine="tile"):
+    (overflow, max_tile_count, capacity) over the kernel's 16x16 tiles,
+    with overflow 0 and capacity None as audit_scene."""
+    _check_opts("raster_opts", raster_opts)
+    spec = DrawSpec(mesh, model, shading=SHADING_NONE)
+    return audit_scene(view_proj, [spec], height, width, light,
+                       cull_backfaces, near_clip)

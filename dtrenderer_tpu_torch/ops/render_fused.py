@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from dtrenderer_tpu_torch.ops.binning import Bins
+from dtrenderer_tpu_torch.ops.binning import Bins, window_ids
 from dtrenderer_tpu_torch.ops.geometry import (
     SETUP_CHANNELS, coverage_and_depth, interp as bary_interp,
 )
@@ -219,7 +219,8 @@ def tile_pixel_centres(bins: Bins, height: int, width: int, y_offset: int,
 def subblock_masks_plain(coef, bins: Bins, height: int, width: int,
                          y_offset: int = 0, x_offset: int = 0):
     """The coarse stage of K1's and K2's visibility walk in plain torch: for
-    every binned (tile, triangle) pair, in `bins.tri_ids` order, an i32 mask
+    every binned (tile, triangle) pair, in `binning.window_ids` order (all
+    of `bins.tri_ids`, or a band's window of a shared table), an i32 mask
     whose bit s is set unless an edge function rules out every pixel of the
     tile's sub-block s (SUB_H x SUB_W pixels, row-major in the tile).
 
@@ -244,7 +245,7 @@ def subblock_masks_plain(coef, bins: Bins, height: int, width: int,
     sub = torch.arange(SUBS, device=device)
     sx = (sub % (TILE_W // SUB_W))[None, :] * SUB_W
     sy = (sub // (TILE_W // SUB_W))[None, :] * SUB_H
-    c = coef[bins.tri_ids.to(torch.int64)]
+    c = coef[window_ids(bins).to(torch.int64)]
     keep = torch.ones((tile.shape[0], SUBS), dtype=torch.bool, device=device)
     for e in range(3):
         A, B, C = (c[:, 3 * e + i][:, None] for i in range(3))

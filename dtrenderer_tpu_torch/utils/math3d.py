@@ -17,6 +17,40 @@ import torch
 F32 = torch.float32
 
 
+def dot(a, b):
+    """Dot product over the last axis, summed left to right (the order the
+    reference's short reduction takes)."""
+    prod = a * b
+    out = prod[..., 0]
+    for i in range(1, prod.shape[-1]):
+        out = out + prod[..., i]
+    return out
+
+
+def cross(a, b):
+    """Cross product in the reference's op order (a1*b2 - a2*b1, ...)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def length(v):
+    """sqrt(dot(v, v)), correctly rounded (ATen's CPU float sqrt is not: the
+    f64 sqrt rounded once to f32 is, as ops/shading.sqrt_exact)."""
+    d = dot(v, v)
+    return torch.sqrt(d.double()).to(d.dtype)
+
+
+def normalize(v):
+    # FORMULAS.md: true divide + sqrt, no rsqrt fast path (oracle parity).
+    return v / length(v)[..., None]
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
 def homogenize(p3):
     """[..., 3] points -> [..., 4] with w=1."""
     ones = torch.ones(p3.shape[:-1] + (1,), dtype=p3.dtype, device=p3.device)
@@ -68,6 +102,22 @@ def rotate_z(theta, *, device):
                                      [0, 0, 1, 0], [0, 0, 0, 1]])
 
 
+def rotate_axis(axis, theta, *, device):
+    """Rodrigues rotation about a (not necessarily unit) axis; built on the
+    host in f32 and copied to `device`, as the other rotations."""
+    x, y, z = normalize(torch.as_tensor(axis, dtype=F32).cpu())
+    theta = torch.as_tensor(theta, dtype=F32).cpu()
+    c, s = torch.cos(theta), torch.sin(theta)
+    C = 1.0 - c
+    m = torch.eye(4, dtype=F32)
+    m[:3, :3] = torch.stack([
+        torch.stack([c + x * x * C, x * y * C - z * s, x * z * C + y * s]),
+        torch.stack([y * x * C + z * s, c + y * y * C, y * z * C - x * s]),
+        torch.stack([z * x * C - y * s, z * y * C + x * s, c + z * z * C]),
+    ])
+    return m.to(device)
+
+
 def perspective(fov_y_rad, aspect, z_near, z_far, *, device):
     """OpenGL-style right-handed perspective; maps z to NDC [-1, 1]. The
     entries are computed in float64 on the host and rounded once to f32, as
@@ -83,6 +133,36 @@ def perspective(fov_y_rad, aspect, z_near, z_far, *, device):
         ],
         dtype=F32, device=device,
     )
+
+
+def orthographic(left, right, bottom, top, z_near, z_far, *, device):
+    """OpenGL-style orthographic projection; entries in float64 on the host,
+    rounded once to f32."""
+    l, r, b, t, zn, zf = map(float, (left, right, bottom, top, z_near, z_far))
+    return torch.tensor(
+        [
+            [2.0 / (r - l), 0, 0, -(r + l) / (r - l)],
+            [0, 2.0 / (t - b), 0, -(t + b) / (t - b)],
+            [0, 0, -2.0 / (zf - zn), -(zf + zn) / (zf - zn)],
+            [0, 0, 0, 1],
+        ],
+        dtype=F32, device=device,
+    )
+
+
+def look_at(eye, target, up, *, device):
+    """World -> view matrix of a camera at `eye` looking at `target`."""
+    eye = torch.as_tensor(eye, dtype=F32, device=device)
+    fwd = normalize(torch.as_tensor(target, dtype=F32, device=device) - eye)
+    right = normalize(cross(fwd, torch.as_tensor(up, dtype=F32,
+                                                 device=device)))
+    up2 = cross(right, fwd)
+    rot = torch.stack([right, up2, -fwd])  # world -> view rotation rows
+    m = torch.eye(4, dtype=F32, device=device)
+    m[:3, :3] = rot
+    # explicit mat3 . vec in the reference's order (see mat4mul for why)
+    m[:3, 3] = -(rot[:, 0] * eye[0] + rot[:, 1] * eye[1] + rot[:, 2] * eye[2])
+    return m
 
 
 def mat4mul(a, b):

@@ -46,6 +46,16 @@ CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _reference_font_baked_outside_jit():
+    """The reference's api.render_text bakes its default font through an
+    lru_cache. A first call from inside a jitted frame (as below) would
+    cache a tracer, and every later test of the same worker process that
+    draws text through the reference would fail on the leaked tracer: bake
+    it eagerly first."""
+    jfont.bake_builtin_font(12)
+
+
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
     """Several pytest workers share a few cores; these small eager tensors

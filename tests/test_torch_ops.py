@@ -320,3 +320,187 @@ def test_head_texture_matches_reference():
     from dtrenderer_tpu_torch.models.scenes import head_texture
 
     assert_ulp(_head_texture(), head_texture(CPU).numpy(), max_ulp=4)  # pow
+
+
+# ---------------------------- math3d vectors and cameras, the mesh setup
+
+
+def test_vector_helpers_bit_exact():
+    """dot, length, normalize, lerp on [N, 3] and [N, 4] vectors: jnp.sum
+    over 3 or 4 elements adds left to right and jnp.sqrt is correctly
+    rounded, so each is bit for bit. jnp.cross is a jitted program in which
+    XLA:CPU contracts a1*b2 - a2*b1 to one FMA; the port keeps FORMULAS.md's
+    two roundings (flat shading's face normal is held bit-equal to the NumPy
+    oracle with it), so cross is bit-equal to that formula in numpy and
+    within the roundings of the two products of jnp.cross."""
+    rng = np.random.default_rng(23)
+    for d in (3, 4):
+        a = rng.normal(size=(513, d)).astype(np.float32)
+        b = rng.normal(size=(513, d)).astype(np.float32)
+        assert_bits(jm3.dot(jnp.asarray(a), jnp.asarray(b)),
+                    pm3.dot(T(a), T(b)))
+        assert_bits(jm3.length(jnp.asarray(a)), pm3.length(T(a)))
+        assert_bits(jm3.normalize(jnp.asarray(a)), pm3.normalize(T(a)))
+        assert_bits(jm3.lerp(jnp.asarray(a), jnp.asarray(b),
+                             jnp.float32(0.3)),
+                    pm3.lerp(T(a), T(b), 0.3))
+    a = rng.normal(size=(513, 3)).astype(np.float32)
+    b = rng.normal(size=(513, 3)).astype(np.float32)
+    got = pm3.cross(T(a), T(b))
+    i, j = np.array([1, 2, 0]), np.array([2, 0, 1])
+    assert_bits(a[:, i] * b[:, j] - a[:, j] * b[:, i], got)
+    ref = np.asarray(jm3.cross(jnp.asarray(a), jnp.asarray(b)))
+    slack = 2.0 ** -23 * (np.abs(a[:, i] * b[:, j])
+                          + np.abs(a[:, j] * b[:, i]))
+    assert np.all(np.abs(got.numpy() - ref) <= slack)
+
+
+def test_orthographic_and_look_at():
+    """orthographic is bit for bit. look_at goes through cross twice, which
+    the reference contracts to FMAs (see above): bit for bit where the
+    products are exact (an axis-aligned camera), else within 1e-6 of
+    entries of size <= |eye|."""
+    assert_bits(jm3.orthographic(-2, 3, -1.5, 1.5, 0.1, 40.0),
+                pm3.orthographic(-2, 3, -1.5, 1.5, 0.1, 40.0, device=CPU))
+    assert_bits(jm3.look_at((0, 0, 5), (0, 0, 0), (0, 1, 0)),
+                pm3.look_at((0, 0, 5), (0, 0, 0), (0, 1, 0), device=CPU))
+    eye, target, up = (1.5, -2.0, 3.25), (0.3, 0.1, -4.0), (0.1, 1.0, 0.2)
+    got = pm3.look_at(eye, target, up, device=CPU).numpy()
+    np.testing.assert_allclose(got, np.asarray(jm3.look_at(eye, target, up)),
+                               rtol=0, atol=1e-6)
+    # a rigid transform that takes the eye to the origin
+    np.testing.assert_allclose(got[:3, :3] @ got[:3, :3].T, np.eye(3),
+                               atol=1e-6)
+    np.testing.assert_allclose(got @ np.array([*eye, 1.0], np.float32),
+                               [0, 0, 0, 1], atol=1e-6)
+
+
+def test_rotate_axis_within_a_few_ulp():
+    """cos and sin may differ from jnp's in the last ulp (see the rotations
+    above), and an entry is a sum of three products of them: each entry
+    within 4 ulps of an entry-sized value (an entry near 0 by cancellation
+    is compared absolutely), and about a coordinate axis the matrix is that
+    axis's rotation."""
+    for axis, theta in (((0, 0, 1), 0.3), ((1, 2, -0.5), 1.1),
+                        ((-3, 0.2, 0.9), -2.4)):
+        ref = np.asarray(jm3.rotate_axis(axis, theta))
+        got = pm3.rotate_axis(axis, theta, device=CPU).numpy()
+        assert got.dtype == np.float32 and got.shape == (4, 4)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=4 * 2.0 ** -24)
+    np.testing.assert_allclose(
+        pm3.rotate_axis((0, 1, 0), 0.48, device=CPU).numpy(),
+        pm3.rotate_y(0.48, device=CPU).numpy(), rtol=0, atol=2.0 ** -24)
+
+
+def test_vertex_transform_and_triangle_setup_bit_exact():
+    """The indexed vertex path: vertex_transform then triangle_setup on a
+    mesh, against the reference's; it equals the corner path the draws use."""
+    from dtrenderer_tpu.models import primitives as jprim
+
+    w, h = 160, 120
+    mesh = jprim.uv_sphere(10, 14)
+    mvp = jm3.mat4mul(jnp.asarray(jm3.perspective(np.pi / 3, w / h, 0.1, 50.0)),
+                      jm3.model_matrix((0.2, -0.1, -2.2), jm3.rotate_y(0.7)))
+    ref_s = jgeo.vertex_transform(mesh.verts, mvp, w, h)
+    got_s = pgeo.vertex_transform(T(mesh.verts), T(mvp), w, h)
+    assert_bits(ref_s, got_s)
+    for cull in (True, False):
+        ref = jgeo.triangle_setup(ref_s, mesh.faces, w, h, cull)
+        got = pgeo.triangle_setup(got_s, T(mesh.faces, np.int32), w, h, cull)
+        assert_bits(ref.coef, got.coef)
+        assert_bits(ref.bbox, got.bbox)
+        assert_bits(ref.valid, got.valid)
+        assert 0 < int(got.valid.sum())
+
+
+# ------------------------------------------------------------------ audits
+
+
+def _audit_scene(n=1200, h=64, w=128):
+    """tests/test_shard.py's budget soup, in both packages."""
+    from dtrenderer_tpu.models import primitives as jprim
+    from dtrenderer_tpu.ops.pipeline import DrawSpec as JDrawSpec
+    from dtrenderer_tpu_torch.ops.pipeline import DrawSpec as PDrawSpec
+
+    soup = jprim.random_triangle_soup(n, rng_seed=7, extent=1.2)
+    mdl = jnp.asarray(jm3.model_matrix((0, 0, -2.5), jm3.rotate_y(0.3)))
+    proj = jnp.asarray(jm3.perspective(np.pi / 3, w / h, 0.1, 50.0))
+    return (proj, [JDrawSpec(soup, mdl)], T(proj),
+            [PDrawSpec(convert.mesh(soup, CPU), T(mdl))], soup, mdl, h, w)
+
+
+def test_audit_scene_and_ordered_against_reference():
+    """audit_scene / audit_ordered: overflow 0 and no capacity (None); the
+    deepest tile's count equals the reference's when the reference bins at
+    the port's 16x16 tile without its small/broad split (small_span above
+    every span, as test_torch_binning.py does)."""
+    from dtrenderer_tpu.ops import pipeline as jpipe
+    from dtrenderer_tpu_torch.ops import pipeline as ppipe
+
+    jproj, jdraws, proj, draws, soup, mdl, h, w = _audit_scene()
+    ov, mx, cap = ppipe.audit_scene(proj, draws, h, w, near_clip=False)
+    ref = jpipe.audit_scene(jproj, jdraws, h, w, near_clip=False,
+                            raster_opts=dict(tile_h=16, tile_w=16,
+                                             capacity=512, small_span=64))
+    assert (ov, cap) == (0, None) and ref[0] == 0
+    assert mx == ref[1] > 1
+    ov3, mx3, cap3 = ppipe.audit_ordered(proj, draws[0].mesh, draws[0].model,
+                                         h, w, near_clip=False)
+    assert (ov3, mx3, cap3) == (0, mx, None)
+    with pytest.raises(NotImplementedError, match="capacity"):
+        ppipe.audit_scene(proj, draws, h, w, raster_opts=dict(capacity=8))
+    with pytest.raises(NotImplementedError, match="tile_h"):
+        ppipe.audit_ordered(proj, draws[0].mesh, draws[0].model, h, w,
+                            raster_opts=dict(tile_h=16))
+
+
+@pytest.mark.parametrize("opts", [None, dict(row_bands=8),
+                                  dict(row_bands=8, band_shared=False)],
+                         ids=["per_band", "shared", "shared_off"])
+def test_audit_bands_against_reference(opts):
+    """audit_bands: the reference's keys; band_tris equal the reference's
+    (a host count over the same bboxes); band_pairs are those of the bins
+    the banded render reads; budgets None, nothing dropped."""
+    from dtrenderer_tpu.ops import pipeline as jpipe
+    from dtrenderer_tpu_torch.ops import binning as pb, pipeline as ppipe
+
+    jproj, jdraws, proj, draws, soup, mdl, h, w = _audit_scene()
+    rep = ppipe.audit_bands(proj, draws, h, w, 8, near_clip=False,
+                            raster_opts=opts)
+    ref = jpipe.audit_bands(jproj, jdraws, h, w, 8, near_clip=False,
+                            raster_opts=dict(tile_h=8, capacity=512,
+                                             small_span=8))
+    assert set(rep) == set(ref)
+    assert ref["ok"] and rep["ok"]
+    assert (rep["n_bands"], rep["band_h"]) == (8, 8) == (ref["n_bands"],
+                                                         ref["band_h"])
+    assert rep["band_tris"] == ref["band_tris"]
+    assert rep["shared"] == (opts == dict(row_bands=8))
+    assert rep["shard_budget"] is None and rep["pair_budget"] is None
+    assert rep["shard_overflow"] == 0 and rep["pair_overflow"] == 0
+    batch = ppipe.pack_draws(draws, proj, ppipe.make_light(device=CPU),
+                             "nearest", w, h, near_clip=False)
+    want = [int(pb.bin_triangles(batch.coef, batch.bbox, batch.valid, 8, w,
+                                 b * 8).tri_ids.shape[0]) for b in range(8)]
+    assert rep["band_pairs"] == want and min(want) > 0
+    # every band's pairs cover at least its triangles
+    assert all(p >= t for p, t in zip(rep["band_pairs"], rep["band_tris"]))
+    with pytest.raises(ValueError, match="must divide"):
+        ppipe.audit_bands(proj, draws, h, w, 7)
+
+
+def test_device_time_on_the_cpu():
+    """benchlib.device_time on CPU tensors: the host clock around `iters`
+    calls after `warmup_iters`, the median over `repeats`."""
+    from dtrenderer_tpu_torch.utils import benchlib
+
+    calls = []
+
+    def fn(x, y):
+        calls.append(1)
+        return x @ y
+
+    x = torch.ones((64, 64))
+    dt = benchlib.device_time(fn, x, x, iters=5, warmup_iters=2, repeats=3)
+    assert len(calls) == 2 + 3 * 5
+    assert 0 < dt < 1.0

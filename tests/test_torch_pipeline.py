@@ -332,8 +332,9 @@ def test_port_imports_no_jax():
     """Every module of the port imports, a config-1 frame renders on the
     "ref" backend and a translucent draw on both ordered engines, the
     12-px font is baked, a text line and a rectangle are drawn through the
-    api, and no module of JAX, of the JAX package, of PIL or of matplotlib
-    was loaded."""
+    api, a two-band sharded draw goes through the shared table, and no
+    module of JAX, of the JAX package, of PIL, of matplotlib or of
+    torch.distributed was loaded by the port."""
     code = (
         "import sys\n"
         "import dtrenderer_tpu_torch\n"
@@ -353,6 +354,9 @@ def test_port_imports_no_jax():
         "import dtrenderer_tpu_torch.tools.bake_fonts\n"
         "import dtrenderer_tpu_torch.utils.rng, dtrenderer_tpu_torch.utils.trace\n"
         "import dtrenderer_tpu_torch.utils.checkpoint\n"
+        "import dtrenderer_tpu_torch.utils.benchlib\n"
+        "import dtrenderer_tpu_torch.tools.dryrun\n"
+        "import dtrenderer_tpu_torch.parallel.shard as shard\n"
         "from dtrenderer_tpu_torch import api\n"
         "from dtrenderer_tpu_torch.assets.font import bake_builtin_font\n"
         "from dtrenderer_tpu_torch.models import primitives, scenes\n"
@@ -374,6 +378,14 @@ def test_port_imports_no_jax():
         "st = api.render_rectangle(st, (4, 20), (30, 28), (1, 0, 0, 1),\n"
         "    api.transform2d(rotation=0.3, device='cpu'))\n"
         "assert api.finish_frame(st)[..., 0].max() == 255\n"
+        "dmesh = shard.make_mesh(rows=2, devices=['cpu'])\n"
+        "ball = primitives.uv_sphere(6, 8, device='cpu')\n"
+        "out = shard.draw_mesh_sharded(shard.create_sharded_fb(32, 64, dmesh),\n"
+        "    ball, mdl, proj, dmesh, backend='fused',\n"
+        "    raster_opts=dict(row_bands=2))\n"
+        "one = pipeline.draw_mesh(fb.create(32, 64, 'cpu'), ball, mdl, proj,\n"
+        "    backend='fused')\n"
+        "assert shard.gather_fb(out).color.equal(one.color) and one.color.any()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'PIL', 'matplotlib'))\n"
         "             or m == 'dtrenderer_tpu' or m.startswith('dtrenderer_tpu.'))\n"
@@ -383,6 +395,15 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+    # the band split is one controller over a mesh of devices: no process
+    # group (torch itself may load torch.distributed, so read the sources)
+    pkg = os.path.join(REPO, "dtrenderer_tpu_torch")
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "_build"]  # kernel builds, copies
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    assert "torch.distributed" not in f.read(), name
 
 
 def _tiny_fb():

@@ -29,7 +29,9 @@ from dtrenderer_tpu_torch.assets import native as pnative
 from dtrenderer_tpu_torch.debug import FrameCounters
 from dtrenderer_tpu_torch.ops import fb as pfb
 from dtrenderer_tpu_torch.tools import cli as pcli
+from dtrenderer_tpu_torch.parallel import shard as pshard
 from dtrenderer_tpu_torch.tools import demo as pdemo
+from dtrenderer_tpu_torch.tools import dryrun as pdryrun
 from dtrenderer_tpu_torch.utils import checkpoint as pckpt
 from dtrenderer_tpu_torch.utils import rng as prng
 from dtrenderer_tpu_torch.utils import trace as ptrace
@@ -348,16 +350,69 @@ def test_cli_main_on_cpu(tmp_path, monkeypatch, scene, extra):
 
 
 def test_tools_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
-    """Without a card and without --cpu both tools exit with an error and
-    write nothing; --rows/--cols above 1 name what is not ported."""
+    """Without a card and without --cpu the tools exit with an error and
+    write nothing (with --rows/--cols too: a mesh never falls back to the
+    CPU on its own); with --cpu, --rows/--cols above 1 render the unbanded
+    frame bit for bit."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "never.png"
+    scene1 = ["--scene", "1", "--w", "32", "--h", "24"]
     for main, argv in ((pdemo.main, ["--w", "32", "--h", "24"]),
-                       (pcli.main, ["--scene", "1", "--w", "32", "--h", "24"])):
+                       (pcli.main, scene1),
+                       (pcli.main, scene1 + ["--rows", "2"])):
         with pytest.raises(SystemExit, match="--cpu"):
             main(argv + ["--out", str(out)])
         assert not out.exists()
+    with pytest.raises(SystemExit, match="--cpu"):
+        pdryrun.main(["--devices", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pshard.make_mesh(rows=2)
+    whole = tmp_path / "whole.png"
+    pcli.main(["--cpu", *scene1, "--save-npy", "--out", str(whole)])
     for flag in ("--rows", "--cols"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            pcli.main(["--cpu", "--scene", "1", flag, "2", "--out", str(out)])
-    assert not out.exists()
+        band = tmp_path / f"band{flag}.png"
+        pcli.main(["--cpu", *scene1, flag, "2", "--save-npy", "--out",
+                   str(band)])
+        assert np.load(f"{band}.npy").tobytes() == np.load(
+            f"{whole}.npy").tobytes()
+        assert band.read_bytes() == whole.read_bytes()
+
+
+@pytest.mark.parametrize("scene,extra", [
+    ("4", []), ("4", ["--backend", "pallas"]), ("3", ["--frames", "2"]),
+    (os.path.join(REPO, "data", "head.obj"), []),
+], ids=["config4_fused", "config4_pallas", "config3_2frames", "obj"])
+def test_cli_rows_cols_on_cpu(tmp_path, scene, extra):
+    """--rows 4 --cols 2 (render_frames_sharded over a 1 x 4 x 2 mesh of
+    cpu cells, the scenes' band arguments) gives the raw f32 frame of the
+    unbanded CLI render, bit for bit. 60 = 4 x 15 rows: ragged bands."""
+    base = ["--cpu", "--scene", scene, "--w", "96", "--h", "60", "--save-npy",
+            *extra]
+    whole, band = str(tmp_path / "whole.png"), str(tmp_path / "band.png")
+    pcli.main(base + ["--out", whole])
+    pcli.main(base + ["--rows", "4", "--cols", "2", "--out", band])
+    a, b = np.load(whole + ".npy"), np.load(band + ".npy")
+    assert a.shape == (60, 96, 4) and np.isfinite(a).all()
+    assert len(np.unique(a.reshape(-1, 4), axis=0)) > 2
+    assert a.tobytes() == b.tobytes()
+    assert _png_size(band)[0] == (60, 96, 4)
+
+
+def test_cli_demo_scene_does_not_split(tmp_path):
+    with pytest.raises(SystemExit, match="demo scene"):
+        pcli.main(["--cpu", "--rows", "2", "--out", str(tmp_path / "x.png")])
+
+
+@pytest.mark.parametrize("cells", [8, 3])
+def test_dryrun_on_cpu_cells(capsys, cells):
+    """tools.dryrun in-process over `cells` cpu cells: every scene prints
+    its ok line (an odd count has no frames x rows and no rows x cols
+    mesh), and each is bit-equal inside (it raises otherwise)."""
+    pdryrun.main(["--devices", str(cells), "--cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("dryrun_multichip ok")]
+    assert len(lines) == (6 if cells % 2 == 0 else 5)
+    for word in ("per-band binning", "shared cross-band", "DISTRIBUTED",
+                 "ordered translucent"):
+        assert sum(word in ln for ln in lines) == 1, word
+    assert f"over {cells} bands of 24 rows" in lines[1]
