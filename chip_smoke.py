@@ -81,7 +81,16 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      "tile" and "scan" engines: depth bit-equal, u8 within +-1, no outliers;
      then every 2D verb, both text functions with both fonts, a textured
      render_triangle and the HUD, after each verb: the same bar, and depth
-     bit-equal to the depth before each 2D verb.
+     bit-equal to the depth before each 2D verb;
+  8. edge cases (models/edge_cases.py: the reference's degenerate inputs,
+     NaN / infinite / 1e12 UVs at LUT base 0 and > 0, a vertex at +-1e12
+     pixels, a camera in a box, a triangle fan, integer edges), each on the
+     card and on the CPU through "fused" (K1), "pallas" (K2), "ref" and the
+     "tile" engine (K3), counted as in 4: depth bit-equal, colour NaN at the
+     same channels and within 1e-6 elsewhere, u8 within +-1, no outliers;
+     each kernel against its plain twin on the card for those inputs, K2's
+     ids against the CPU's; math3d.to_i32 on the card = CPU = CUDA cast.
+     One line per case.
 
 Prints one JSON line describing the kernels (with each kernel's least time
 on the card, its bound), then, as the last line, {"ok": true, "device":
@@ -1104,13 +1113,14 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
         {"K1": rows * (iters + 1), "K2": 0, "K3": 0}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused",
-            raster_opts=ways[1][1], **kw), iters=iters, warmup_iters=1))
+            raster_opts=ways[1][1], **kw), device=fb5.depth.device,
+            iters=iters, warmup_iters=1))
     whole_call = counted(
         "config 5 single launch, device_time",
         {"K1": iters + 1, "K2": 0, "K3": 0}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused", **kw),
-            iters=iters, warmup_iters=1))
+            device=fb5.depth.device, iters=iters, warmup_iters=1))
     print(f"band paths: config 5 fused, benchlib.device_time over {iters} "
           f"back-to-back calls (CUDA events): draw_mesh row_bands={rows} "
           f"shared {per_call * 1e3:.3f} ms a call, single launch "
@@ -1257,6 +1267,111 @@ def reference_check():
             out.append(spec.frame(fb0.color, fb0.depth, 0.6))
         compare(f"{tag} {spec.width}x{spec.height}, card vs CPU",
                 out[0][1], out[0][0], out[1][1], out[1][0])
+
+
+def compare_nan(tag, z_a, c_a, z_b, c_b):
+    """compare() for planes that may hold NaN: z bit-equal, colour NaN at the
+    same channels, elsewhere max |diff| <= SRC_TOL and packed u8 within +-1
+    with zero outliers. Returns (max |diff|, covered px, NaN px)."""
+    import torch
+
+    from dtrenderer_tpu_torch.utils.color import pack_srgb_u8
+
+    z_a, z_b, c_a, c_b = z_a.cpu(), z_b.cpu(), c_a.cpu(), c_b.cpu()
+    if not torch.equal(z_a.view(torch.int32), z_b.view(torch.int32)):
+        n = int((z_a.view(torch.int32) != z_b.view(torch.int32)).sum())
+        raise AssertionError(f"{tag}: z differs at {n} pixels")
+    nan = torch.isnan(c_b)
+    if not torch.equal(torch.isnan(c_a), nan):
+        raise AssertionError(f"{tag}: NaN at different colour channels")
+    err = float(torch.where(nan, 0.0, c_a - c_b).abs().max())
+    if not err <= SRC_TOL:
+        raise AssertionError(f"{tag}: colour max |diff| {err} > {SRC_TOL}")
+    ok = ~nan.any(-1)
+    du8 = pack_srgb_u8(c_a).int() - pack_srgb_u8(c_b).int()
+    n_out = int((du8[ok].abs() > 1).sum())
+    if n_out:
+        raise AssertionError(f"{tag}: {n_out} packed u8 channels differ by >1")
+    return err, int(torch.isfinite(z_a).sum()), int((~ok).sum())
+
+
+def edge_cases_check() -> dict:
+    """The degenerate and non-finite cases of models/edge_cases.py (32x128,
+    the camera in a box 64x128) drawn on the card and on the CPU through
+    draw_meshes on "fused" (K1), draw_mesh on "pallas" (K2) and "ref", and
+    draw_mesh_ordered on "tile" (K3): depth bit-equal, colour NaN at the
+    same channels and within SRC_TOL elsewhere, packed u8 within +-1 with
+    zero outliers. Then, on the card, each kernel against its plain twin
+    for the case's packed draws (a texture at LUT base > 0 included) and
+    K2's ids against the CPU's; and math3d.to_i32 on the card against the
+    CPU and against torch's own CUDA cast. Returns the launch counts of the
+    routes' draws on the card."""
+    import torch
+
+    from dtrenderer_tpu_torch.models import edge_cases as ec
+    from dtrenderer_tpu_torch.ops import fb as fblib
+    from dtrenderer_tpu_torch.ops import raster_ordered as ro
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.utils.math3d import to_i32
+
+    dev, cpu = torch.device(DEVICE), torch.device("cpu")
+    t0 = time.perf_counter()
+    x = torch.tensor([float("nan"), float("inf"), -float("inf"), 2.0**31,
+                      -2.0**31, 2147483520.0, 1e12, -1e12, -0.0, 0.5, -0.5,
+                      1.5, -1.5, 3e9, -3e9])
+    on_card = to_i32(x.to(dev))
+    if not (torch.equal(on_card.cpu(), to_i32(x))
+            and torch.equal(on_card, x.to(dev).to(torch.int32))):
+        raise AssertionError(f"to_i32: card {on_card.tolist()}, CPU "
+                             f"{to_i32(x).tolist()}, CUDA cast "
+                             f"{x.to(dev).to(torch.int32).tolist()}")
+    routes = ("fused", "pallas", "ref", "tile")
+    cases = [make() for make in ec.CASES.values()]
+    reset_counts()
+    card = {(c.name, r): ec.render(c, r, dev) for c in cases for r in routes}
+    torch.cuda.synchronize()
+    got = read_counts()
+    n_draws = sum(len(c.draws) for c in cases)
+    want = {"K1": len(cases), "K2": n_draws, "K3": n_draws}
+    if got != want:
+        raise AssertionError(f"edge cases: kernel launches {got}, want {want}")
+    for case in cases:
+        h, w = case.height, case.width
+        where = f"edge case {case.name!r} {w}x{h}"
+        for r in routes:
+            fb = ec.render(case, r, cpu)
+            _, covered, nan_px = compare_nan(
+                f"{where} on {r}, card vs CPU", card[case.name, r].depth,
+                card[case.name, r].color, fb.depth, fb.color)
+        batch, bins, light = ec.pack(case, dev)
+        args = (batch.coef, batch.payload, bins, batch.tex_lut, light, h, w)
+        z1, s1, _ = rf.render_fused(*args)
+        z1p, s1p, _ = rf.render_fused_plain(*args)
+        compare_nan(f"{where}: K1 vs plain", z1, s1, z1p, s1p)
+        z2, t2 = rp.rasterize_bins(batch.coef, bins, h, w)
+        z2p, t2p = rp.rasterize_pallas_plain(batch.coef, bins, h, w)
+        batch_c, bins_c, _ = ec.pack(case, cpu)
+        z2c, t2c = rp.rasterize_bins(batch_c.coef, bins_c, h, w)
+        for name, a, b in (("z", z2, z2p), ("z on the CPU", z2, z2c),
+                           ("ids", t2, t2p), ("ids on the CPU", t2, t2c)):
+            if not torch.equal(a.cpu().view(torch.int32),
+                               b.cpu().view(torch.int32)):
+                raise AssertionError(f"{where}: K2 {name} differs")
+        fb0 = fblib.clear(fblib.create(h, w, dev), ec.CLEAR)
+        planes = (fb0.color, fb0.depth, h, w)
+        c3, d3 = ro.render_ordered_bins(*args[:5], *planes)
+        c3p, d3p = ro.render_ordered_plain(*args[:5], *planes)
+        compare_nan(f"{where}: K3 vs plain", d3, c3, d3p, c3p)
+        torch.cuda.synchronize()
+        print(f"{where}: card = CPU on {', '.join(routes)} (depth "
+              f"bit-equal, covered px {covered}, NaN px {nan_px}); K1, K2, "
+              f"K3 = plain twins on the card, K2 ids = CPU ("
+              f"{int(bins.tri_ids.shape[0])} pairs)")
+    print(f"edge cases: {len(cases)} cases x {len(routes)} routes, "
+          f"{time.perf_counter() - t0:.1f} s, kernel launches {got}; "
+          f"to_i32 card = CPU = CUDA cast on {x.numel()} values")
+    return got
 
 
 def draw2d_text_check():
@@ -1429,6 +1544,8 @@ def main() -> int:
     stages_ordered(sphere, card)
     reference_check()
     draw2d_text_check()
+    for k, n in edge_cases_check().items():
+        launches[k] += n
 
     def entry(name, source, replaces, key, res, **extra):
         err, ms, plain_ms, (bound_ms, bound_by) = res[:4]

@@ -76,6 +76,8 @@ def _lib():
         ) from e
     lib.dtr_obj_parse_file.restype = C.POINTER(_ObjData)
     lib.dtr_obj_parse_file.argtypes = [C.c_char_p]
+    lib.dtr_obj_parse.restype = C.POINTER(_ObjData)
+    lib.dtr_obj_parse.argtypes = [C.c_char_p, C.c_int64]
     lib.dtr_obj_free.argtypes = [C.POINTER(_ObjData)]
     lib.dtr_image_decode.restype = C.POINTER(_Image)
     lib.dtr_image_decode.argtypes = [C.c_char_p, C.c_int64]
@@ -87,18 +89,23 @@ def _lib():
     return lib
 
 
+def available() -> bool:
+    """Whether native/libdtr_native.so loads. A query only: the port has no
+    other path to fall back to, so every call below raises without it."""
+    try:
+        _lib()
+    except ImportError:
+        return False
+    return True
+
+
 def _copy(ptr, count, dtype):
     if count == 0:
         return np.zeros(0, dtype)
     return np.ctypeslib.as_array(ptr, shape=(count,)).astype(dtype, copy=True)
 
 
-def parse_obj_file(path: str):
-    """Native OBJ parse -> (positions [Nv,3], uvs [Nt,2] or None, normals
-    [Nn,3] or None, pos_idx [T,3], uv_idx [T,3] or None, n_idx [T,3] or
-    None), the tuple of assets.obj.parse_obj_text."""
-    lib = _lib()
-    dp = lib.dtr_obj_parse_file(path.encode())
+def _obj_to_arrays(lib, dp):
     d = dp.contents
     try:
         err = d.error.decode()
@@ -122,6 +129,20 @@ def parse_obj_file(path: str):
         uv_idx if has_uv else None,
         n_idx if has_n else None,
     )
+
+
+def parse_obj_file(path: str):
+    """Native OBJ parse -> (positions [Nv,3], uvs [Nt,2] or None, normals
+    [Nn,3] or None, pos_idx [T,3], uv_idx [T,3] or None, n_idx [T,3] or
+    None), the tuple of assets.obj.parse_obj_text."""
+    lib = _lib()
+    return _obj_to_arrays(lib, lib.dtr_obj_parse_file(path.encode()))
+
+
+def parse_obj_bytes(data: bytes):
+    """parse_obj_file on the bytes of an OBJ file."""
+    lib = _lib()
+    return _obj_to_arrays(lib, lib.dtr_obj_parse(data, len(data)))
 
 
 def decode_image_bytes(data: bytes) -> np.ndarray:

@@ -45,6 +45,16 @@ def cube(*, device) -> Mesh:
     )
 
 
+def plane(size=1.0, *, device) -> Mesh:
+    """The square [-size, size]^2 in the y = 0 plane, normal +y, 2 tris."""
+    s = float(size)
+    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]], np.float32)
+    uv = np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32)
+    normals = np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))
+    faces = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    return make_mesh(verts, uv, normals, faces, device=device)
+
+
 def uv_sphere(n_lat=16, n_lon=24, radius=1.0, *, device) -> Mesh:
     """UV sphere with welded grid verts; poles handled as degenerate-free rows."""
     lats = np.linspace(0, np.pi, n_lat + 1)

@@ -1,8 +1,10 @@
 """Vertex stage: near-plane clipping, viewport, triangle setup.
 
 Port of `dtrenderer_tpu/ops/geometry.py`. All formulas and their op order
-follow FORMULAS.md, so coef, bbox and valid equal the reference's bit for bit.
-Integer bbox arithmetic stays int32, as in the reference.
+follow FORMULAS.md, so coef, bbox and valid equal the reference's bit for bit
+(the bbox for every triangle whose bounds lie within +-2^31 pixels; see
+triangle_setup_from_corners). Integer bbox arithmetic stays int32, as in the
+reference.
 
 Packed setup layout, f32 [T, 16] (the CUDA kernel reads it — keep in sync):
   0:A0 1:B0 2:C0  3:A1 4:B1 5:C1  6:A2 7:B2 8:C2
@@ -15,7 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from dtrenderer_tpu_torch.utils.math3d import homogenize, transform_points
+from dtrenderer_tpu_torch.utils.math3d import (
+    homogenize, to_i32, transform_points,
+)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -114,14 +118,22 @@ def triangle_setup_from_corners(p0, p1, p2, width, height, cull_backfaces=True):
                           zero[:, None])
     xmin, xmax = safe_xs.amin(-1), safe_xs.amax(-1)
     ymin, ymax = safe_ys.amin(-1), safe_ys.amax(-1)
-    bx0 = torch.clamp(torch.floor(xmin).to(I32) - 1, 0, width - 1)
-    by0 = torch.clamp(torch.floor(ymin).to(I32) - 1, 0, height - 1)
-    bx1 = torch.clamp(torch.ceil(xmax).to(I32) + 1, 0, width - 1)
-    by1 = torch.clamp(torch.ceil(ymax).to(I32) + 1, 0, height - 1)
+    # Clamped in float before the one conversion, so that a bound beyond
+    # +-2^31 pixels cannot saturate and wrap at the +-1: the bbox then holds
+    # every pixel the triangle covers, and every route draws what the
+    # unbinned "ref" route draws. The reference converts first; its bbox of
+    # such a triangle misses pixels, and its binned routes draw what their
+    # tile size lets through. In range the two bboxes are equal.
+    edges = torch.stack([torch.floor(xmin), torch.floor(ymin),
+                         torch.ceil(xmax), torch.ceil(ymax)], dim=-1)
+    edges = to_i32(torch.clamp(edges, -1.0, float(max(width, height))))
+    step_and_hi = torch.tensor([[-1, -1, 1, 1],
+                                [width - 1, height - 1, width - 1, height - 1]],
+                               dtype=I32, device=edges.device)
+    bbox = torch.minimum((edges + step_and_hi[0]).clamp_min(0), step_and_hi[1])
     # Off-screen triangles collapse to an empty bbox.
     offscreen = (xmax < 0) | (xmin >= width) | (ymax < 0) | (ymin >= height)
     valid = valid & ~offscreen
-    bbox = torch.stack([bx0, by0, bx1, by1], dim=-1)
     return TriSetup(coef=coef, bbox=bbox, valid=valid)
 
 

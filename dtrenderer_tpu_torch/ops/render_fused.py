@@ -28,6 +28,7 @@ from dtrenderer_tpu_torch.ops.geometry import (
     SETUP_CHANNELS, coverage_and_depth, interp as bary_interp,
 )
 from dtrenderer_tpu_torch.ops.shading import Light, sqrt_exact
+from dtrenderer_tpu_torch.utils.math3d import to_i32
 
 F32 = torch.float32
 I32 = torch.int32
@@ -336,9 +337,12 @@ def shade_plain(p, b, tex_lut, light: Light):
     tex_len = tex_lut.shape[0]
 
     def tap(xf, yf):
-        txi = torch.minimum(torch.clamp_min(xf, 0.0), tw - 1.0).to(I32)
-        tyi = torch.minimum(torch.clamp_min(yf, 0.0), th - 1.0).to(I32)
-        idx = base.to(I32) + tyi * tw.to(I32) + txi
+        # clamp in float, then XLA's conversion: a NaN coordinate stays NaN
+        # through the clamp and fetches texel 0 of its row or column, as in
+        # the reference and the kernels (fmaxf(NaN, 0) = 0)
+        txi = to_i32(torch.minimum(torch.clamp_min(xf, 0.0), tw - 1.0))
+        tyi = to_i32(torch.minimum(torch.clamp_min(yf, 0.0), th - 1.0))
+        idx = to_i32(base) + tyi * to_i32(tw) + txi
         return tex_lut[torch.clamp(idx, 0, tex_len - 1).to(torch.int64)]
 
     def lerp2(a, b, t):

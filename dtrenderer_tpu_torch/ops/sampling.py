@@ -1,22 +1,23 @@
 """Texture sampling on a [th, tw, 4] texture: nearest and bilinear gathers.
 
 Port of `dtrenderer_tpu/ops/sampling.py`; FORMULAS.md "Texture sampling"
-(clamp-to-edge, v up). Op order as the reference: floor, cast to int32, then
-clip in int.
+(clamp-to-edge, v up). Op order as the reference: floor, cast to int32
+(`math3d.to_i32`, XLA's conversion, so a NaN, infinite or huge coordinate
+fetches the reference's texel), then clip in int.
 """
 
 from __future__ import annotations
 
 import torch
 
-I32 = torch.int32
+from dtrenderer_tpu_torch.utils.math3d import to_i32
 
 
 def sample_nearest(tex, u, v):
     """tex f32 [th, tw, 4]; u, v f32 of one shape -> [..., 4]."""
     th, tw = tex.shape[0], tex.shape[1]
-    tx = torch.clamp(torch.floor(u * float(tw)).to(I32), 0, tw - 1)
-    ty = torch.clamp(torch.floor((1.0 - v) * float(th)).to(I32), 0, th - 1)
+    tx = torch.clamp(to_i32(torch.floor(u * float(tw))), 0, tw - 1)
+    ty = torch.clamp(to_i32(torch.floor((1.0 - v) * float(th))), 0, th - 1)
     return tex[ty.long(), tx.long()]
 
 
@@ -32,8 +33,8 @@ def sample_bilinear(tex, u, v):
     y0f = torch.floor(fy)
     ax = (fx - x0f)[..., None]
     ay = (fy - y0f)[..., None]
-    x0i = x0f.to(I32)
-    y0i = y0f.to(I32)
+    x0i = to_i32(x0f)
+    y0i = to_i32(y0f)
     x0 = torch.clamp(x0i, 0, tw - 1).long()
     x1 = torch.clamp(x0i + 1, 0, tw - 1).long()
     y0 = torch.clamp(y0i, 0, th - 1).long()

@@ -13,24 +13,28 @@ import numpy as np
 import torch
 
 
-def _device_of(args) -> torch.device:
+def _device_of(args, device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
     for a in args:
         if isinstance(a, torch.Tensor):
             return a.device
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    raise ValueError("device_time: no tensor among the arguments; pass "
+                     "device= to say where fn runs")
 
 
-def device_time(fn, *args, iters: int = 20, warmup_iters: int = 2,
-                repeats: int = 1) -> float:
+def device_time(fn, *args, device=None, iters: int = 20,
+                warmup_iters: int = 2, repeats: int = 1) -> float:
     """Seconds per call of fn(*args): `iters` back-to-back calls between two
     CUDA events on the device's current stream (on the CPU: the host clock
     around the loop), after `warmup_iters` untimed calls. repeats > 1
     returns the median of that many such readings.
 
-    fn runs where the first tensor in args lies; without one, on the
-    current card, else on the CPU. Host work between the calls counts when
-    it outlasts the device's (the card then waits for the host)."""
-    device = _device_of(args)
+    fn runs on `device`, by default where the first tensor in args lies;
+    without a tensor among the args, `device` is required. Host work
+    between the calls counts when it outlasts the device's (the card then
+    waits for the host)."""
+    device = _device_of(args, device)
     cuda = device.type == "cuda"
     for _ in range(warmup_iters):
         fn(*args)

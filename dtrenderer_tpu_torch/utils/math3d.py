@@ -15,6 +15,22 @@ import numpy as np
 import torch
 
 F32 = torch.float32
+I32 = torch.int32
+I32_MAX = 2**31 - 1
+F32_BELOW_2_31 = 2147483520.0  # the largest float32 below 2^31
+
+
+def to_i32(x):
+    """float32 -> int32 as XLA converts: truncate toward zero, NaN -> 0,
+    x >= 2^31 -> INT_MAX, x < -2^31 -> INT_MIN.
+
+    A bare `.to(torch.int32)` of a value outside the int32 range, or of NaN,
+    is undefined in C++: ATen on the CPU gives INT_MIN for all of them, so
+    every float-to-int32 conversion of the port goes through here. The
+    values are brought into range in float first; torch's cast of an
+    in-range value is exact on every device, so the card and the CPU agree."""
+    safe = torch.nan_to_num(x, nan=0.0).clamp(-2.0**31, F32_BELOW_2_31)
+    return torch.where(x >= 2.0**31, I32_MAX, safe.to(I32))
 
 
 def dot(a, b):

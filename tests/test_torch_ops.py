@@ -504,3 +504,17 @@ def test_device_time_on_the_cpu():
     dt = benchlib.device_time(fn, x, x, iters=5, warmup_iters=2, repeats=3)
     assert len(calls) == 2 + 3 * 5
     assert 0 < dt < 1.0
+
+
+def test_device_time_needs_a_device_when_no_argument_is_a_tensor():
+    """Without a tensor among the arguments device_time does not guess a
+    device: `device` says where fn runs, and without it the call raises."""
+    from dtrenderer_tpu_torch.utils import benchlib
+
+    calls = []
+    with pytest.raises(ValueError, match="device="):
+        benchlib.device_time(lambda: calls.append(1), iters=2)
+    assert not calls
+    dt = benchlib.device_time(lambda: calls.append(1), device="cpu", iters=3,
+                              warmup_iters=1)
+    assert len(calls) == 4 and dt >= 0
