@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Hardware smoke gate of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, on one card
+    python3 chip_smoke.py --bands    # phases 1, 2 and the band split over
+                                     # every card (band_paths and
+                                     # band_graph_check)
 
 Run from the root of a checkout. Phases, each of which raises on failure:
 
@@ -72,17 +75,39 @@ Run from the root of a checkout. Phases, each of which raises on failure:
        the translucent sphere, 1080p, 8 bands of 135 rows through
          draw_mesh_ordered_sharded, 2 frames: 8 K3 launches a frame;
        tools.dryrun over 8 cells, in-process;
-  6. stage breakdown of one frame per path (vertex stage + packing,
+  6. vertex stage graph (ops/vertex_graph.py): for the fill scene, config
+     4, the soup, config 5, the translucent sphere and the API frame's
+     render_meshes run, pipeline.pack_draws replayed from its CUDA graph
+     bit-equal to the eager pass (vertex_batch.pack) at t = 0.5 (first
+     sighting eager, second captured), 0.3 and 0.7, with each key's eager
+     runs, captures, replays and graph pool printed; the stage eager
+     against replay: the ATen ops the host dispatches a call, and its time
+     on the host clock and with CUDA events, every timed replay counted as
+     one; config 4's head mesh and texture changed in
+     place and read by the next replay; config 4 as [head, cube,
+     translucent sphere, head, cube] in one draw_meshes (two opaque runs
+     of one key) bit-equal to the eager frame; config 5 on a 1 x 8 x 1
+     mesh (cuda:0 on one card, every card cycled on more), per band and
+     shared, bit-equal to the eager single launch at four times, with each
+     card's keys seen once and captured;
+     then many keys: 16 draw_mesh calls a frame on distinct meshes (16
+     keys), once with the same meshes every frame (all replays) and once
+     with fresh copies every call (all eager), each bit-equal to and timed
+     against the per-draw stage the batched pass replaced;
+     then steady device time: each bench cell (bench_torch/cells.py) after
+     three frames, 5 frames of replays only traced with the bench's own
+     profiler window: device busy ms a frame and busy share;
+  7. stage breakdown of one frame per path (vertex stage + packing,
      binning, kernel, merge or deferred shading), after the counted windows;
      and the API frame's verbs one by one (best of three);
-  7. reference check, small frames on the card against the same frames on
+  8. reference check, small frames on the card against the same frames on
      the CPU: configs 1-3 (160x120) on "ref", "pallas" and "fused", configs
      4 and 5 small on "fused", and a 160x120 translucent sphere through the
      "tile" and "scan" engines: depth bit-equal, u8 within +-1, no outliers;
      then every 2D verb, both text functions with both fonts, a textured
      render_triangle and the HUD, after each verb: the same bar, and depth
      bit-equal to the depth before each 2D verb;
-  8. edge cases (models/edge_cases.py: the reference's degenerate inputs,
+  9. edge cases (models/edge_cases.py: the reference's degenerate inputs,
      NaN / infinite / 1e12 UVs at LUT base 0 and > 0, a vertex at +-1e12
      pixels, a camera in a box, a triangle fan, integer edges), each on the
      card and on the CPU through "fused" (K1), "pallas" (K2), "ref" and the
@@ -1164,6 +1189,419 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     return total
 
 
+# ------------------------------------------------------ vertex stage graph
+
+
+def same_batch(tag, got, want):
+    """Two DrawBatches bit-equal (f32 as int32 bit patterns)."""
+    import torch
+
+    for name, a, b in zip(("coef", "bbox", "valid", "payload", "tex_lut"),
+                          got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs from the eager "
+                                 f"pass")
+
+
+def vertex_stage_graph(card, cfg4, cfg5, sphere):
+    """The vertex stage's CUDA graph (ops/vertex_graph.py) against its
+    eager pass, for the fill scene, config 4, the soup, config 5, the
+    translucent sphere and the API frame's render_meshes run: bit-equal at
+    t = 0.5 (first sighting eager, second captured, then replays), 0.3 and
+    0.7; a mesh and a texture changed in place, seen by the next replay;
+    two identical opaque runs around a translucent draw in one
+    draw_meshes (config 5 on bands: band_graph_check). Counts the host's
+    ops and times the stage
+    (pack_draws of a ready submission), eager against replay, on the host
+    clock and with CUDA events; the timed replays must all be replays."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from bench_torch import scenes as bench_scenes
+    from dtrenderer_tpu_torch.models import primitives
+    from dtrenderer_tpu_torch.models.scenes import Submission
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
+    from dtrenderer_tpu_torch.ops.pipeline import DrawSpec, draw_meshes
+    from dtrenderer_tpu_torch.tools import demo
+
+    dev = torch.device(DEVICE)
+    cube = primitives.cube(device=dev)
+    ball = primitives.uv_sphere(24, 32, device=dev)
+    tex = primitives.checkerboard(64, 8, (1.0, 0.85, 0.3, 1.0),
+                                  (0.15, 0.15, 0.5, 1.0), device=dev)
+    grad = primitives.gradient_texture(64, device=dev)
+
+    def api_submission(t):
+        proj, light, draws = demo.demo_draws(np.float32(t), 1920, 1080, cube,
+                                             ball, tex, grad, dev)
+        return Submission(proj, draws, light, "bilinear", True)
+
+    scenes = [(s.name, s.width, s.height, s.submission) for s in (
+        bench_scenes.fill_scene(device=dev), cfg4,
+        bench_scenes.soup_scene(device=dev), cfg5, sphere)]
+    scenes.append(("api_frame_render_meshes", 1920, 1080, api_submission))
+    eager_pack = vertex_batch.pack  # the pass, eager and uncached
+
+    def pack(fn, sub, w, h):
+        return fn(sub.draws, sub.view_proj, sub.light, sub.sampling_mode, w,
+                  h, near_clip=sub.near_clip)
+
+    def counts():
+        return (vertex_graph.EAGER, vertex_graph.CAPTURES,
+                vertex_graph.REPLAYS)
+
+    class CountOps(TorchDispatchMode):
+        """The ATen operations the host dispatches inside it."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def host_ops(fn):
+        with CountOps() as ops:
+            fn()
+        return ops.n
+
+    reps = 20
+    for name, w, h, submission in scenes:
+        vertex_graph.reset()
+        for i, t in enumerate((0.5, 0.5, 0.5, 0.3, 0.7)):
+            sub = submission(t)
+            got = [x.clone() for x in pack(pipeline.pack_draws, sub, w, h)]
+            same_batch(f"{name} sighting {i + 1}, t = {t}", got,
+                       pack(eager_pack, sub, w, h))
+        if counts() != (1, 1, 4):
+            raise AssertionError(f"{name}: (eager, captures, replays) "
+                                 f"{counts()}, want (1, 1, 4)")
+        sub = submission(0.5)
+        n_ops = {way: host_ops(lambda: pack(fn, sub, w, h)) for way, fn in (
+            ("eager", eager_pack), ("replay", pipeline.pack_draws))}
+        host = {"eager": [], "replay": []}
+        for way in ("eager", "replay", "replay", "eager"):
+            fn = eager_pack if way == "eager" else pipeline.pack_draws
+            host[way] += [timed(lambda: pack(fn, sub, w, h))[1]
+                          for _ in range(reps // 2)]
+        ev_eager = cuda_ms(lambda: pack(eager_pack, sub, w, h), reps)
+        ev_replay = cuda_ms(lambda: pack(pipeline.pack_draws, sub, w, h),
+                            reps)
+        want = (1, 1, 4 + 1 + reps + reps + 1)
+        if counts() != want:
+            raise AssertionError(f"{name}: timed stages were not all "
+                                 f"replays: {counts()}, want {want}")
+        (stat,) = vertex_graph.stats()
+        print(f"vertex stage graph {name} {w}x{h}: {len(sub.draws)} draws, "
+              f"{stat['rows']} setup rows; replay bit-equal to the eager "
+              f"pass at t = 0.5, 0.3, 0.7; (eager, captures, replays) "
+              f"{counts()}, graph pool "
+              f"{stat['pool_mib']:.1f} MiB; host ops a call: eager "
+              f"{n_ops['eager']}, replay {n_ops['replay']}; stage ms, host "
+              f"clock to a synchronise (median of {reps}): eager "
+              f"{np.median(host['eager']):.4f}, replay "
+              f"{np.median(host['replay']):.4f}; CUDA events over {reps} "
+              f"back-to-back calls: eager {ev_eager:.4f}, replay "
+              f"{ev_replay:.4f} ms a call [{card}]")
+
+    # a mesh and a texture changed in place: the next replay reads them
+    vertex_graph.reset()
+    sub = cfg4.submission(0.5)
+    head = sub.draws[0]
+    for _ in range(3):
+        before = [x.clone() for x in pack(pipeline.pack_draws, sub, cfg4.width,
+                                          cfg4.height)]
+    verts, texels = head.mesh.verts.clone(), head.texture.clone()
+    head.mesh.verts.mul_(1.25)
+    head.texture.mul_(0.5)
+    got = [x.clone() for x in pack(pipeline.pack_draws, sub, cfg4.width,
+                                   cfg4.height)]
+    want = pack(eager_pack, sub, cfg4.width, cfg4.height)
+    head.mesh.verts.copy_(verts)
+    head.texture.copy_(texels)
+    same_batch("config 4, head mesh and texture changed in place", got, want)
+    if torch.equal(got[0], before[0]) or torch.equal(got[4], before[4]):
+        raise AssertionError("config 4: the replay did not see the change")
+    if counts() != (1, 1, 3):
+        raise AssertionError(f"in-place change: {counts()}, want (1, 1, 3)")
+    print(f"vertex stage graph: config 4's head mesh and texture changed in "
+          f"place are read by the next replay, bit-equal to the eager pass "
+          f"[{card}]")
+
+    # two identical opaque runs around a translucent draw, one draw_meshes
+    vertex_graph.reset()
+    head, box, ball4, _ = sub.draws
+    trans = DrawSpec(ball4.mesh, ball4.model, color=(0.8, 0.5, 0.9, 0.6),
+                     shading="phong")
+    seq = [head, box, trans, head, box]
+    fb4 = fblib.create(cfg4.height, cfg4.width, dev)
+
+    def frame4():
+        out = draw_meshes(fb4, sub.view_proj, seq, light=sub.light,
+                          sampling_mode=sub.sampling_mode)
+        return [t.clone() for t in out]
+
+    graphed = [frame4() for _ in range(3)]
+    with mock.patch.object(vertex_graph, "pack", eager_pack):
+        eager_frame = frame4()
+    for i, fr in enumerate(graphed):
+        bits_equal(f"two opaque runs around a translucent draw, frame {i}",
+                   fblib.Framebuffer(*fr), fblib.Framebuffer(*eager_frame))
+    print(f"vertex stage graph: config 4 [head, cube, translucent sphere, "
+          f"head, cube] in one draw_meshes, 3 frames bit-equal to the eager "
+          f"frame; (eager, captures, replays) {counts()} [{card}]")
+
+    vertex_graph.reset()
+
+
+def band_graph_check(card, cfg5):
+    """Config 5 on a 1 x 8 x 1 mesh (cuda:0 on one card; every card cycled
+    on more, each staging its own copy of the scene), per band and shared,
+    bit-equal to the eager pass's single launch at four times; prints each
+    card's keys seen once and captured (do the per-call copies of the scene
+    reach replays?)."""
+    from unittest import mock
+
+    import torch
+
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
+    from dtrenderer_tpu_torch.parallel import shard
+
+    dev = torch.device(DEVICE)
+    eager_pack = vertex_batch.pack
+
+    def counts():
+        return (vertex_graph.EAGER, vertex_graph.CAPTURES,
+                vertex_graph.REPLAYS)
+
+    vertex_graph.reset()
+    mesh8 = shard.make_mesh(frames=1, rows=8)
+    fb5 = fblib.create(cfg5.height, cfg5.width, dev)
+    cut5 = shard.shard_fb(fb5, mesh8)
+    for t in (0.5, 0.3, 0.7, 0.5):
+        sub5 = cfg5.submission(t)
+        d = sub5.draws[0]
+        kw = dict(texture=d.texture, light=sub5.light, color=d.color,
+                  shading=d.shading, sampling_mode=sub5.sampling_mode,
+                  near_clip=sub5.near_clip, backend="fused")
+        with mock.patch.object(vertex_graph, "pack", eager_pack):
+            single = pipeline.draw_mesh(fb5, d.mesh, d.model,
+                                        sub5.view_proj, **kw)
+        for way, opts in (("per band", None),
+                          ("shared", dict(row_bands=8))):
+            got = shard.gather_fb(shard.draw_mesh_sharded(
+                cut5, d.mesh, d.model, sub5.view_proj, mesh8,
+                raster_opts=opts, **kw), dev)
+            bits_equal(f"config 5, 8 bands {way}, t = {t}", got, single)
+    devices = [str(d) for d in mesh8.distinct()]
+    print(f"vertex stage graph: config 5 on a 1x8x1 mesh of "
+          f"{', '.join(devices)}, per band and shared, bit-equal to the "
+          f"eager pass's single launch at t = 0.5, 0.3, 0.7, 0.5; (eager, "
+          f"captures, replays) {counts()} [{card}]")
+    for d in devices:  # does each card's copy of the scene reach replays?
+        keys = vertex_graph.device_keys(d)
+        print(f"vertex stage graph: config 5 on 8 bands, {d}: "
+              f"{len(keys.first)} key(s) seen once, captured keys "
+              f"{[(s['period'], s['replays']) for s in vertex_graph.stats() if s['device'] == d]}"
+              f" as (period, replays), over {keys.clock} calls")
+    vertex_graph.reset()
+
+
+def per_draw_pack(draws, view_proj, light, sampling_mode, frame_w, frame_h,
+                  cull_backfaces=True, near_clip=True, mvps=None):
+    """pipeline.pack_draws as it was before its batched pass: prepare_draw
+    and pack_payload per draw, then torch.cat (the baseline of
+    many_keys_frame)."""
+    import torch
+
+    from dtrenderer_tpu_torch.models.primitives import white_texture
+    from dtrenderer_tpu_torch.ops import pipeline
+    from dtrenderer_tpu_torch.ops.render_fused import (
+        make_texture_lut, pack_flags, pack_payload,
+    )
+    from dtrenderer_tpu_torch.utils.math3d import mat4mul
+
+    white = white_texture(device=light.direction.device)
+    lut, meta = make_texture_lut(
+        [d.texture if d.texture is not None else white for d in draws])
+    parts = []
+    for i, (d, m) in enumerate(zip(draws, meta)):
+        mvp = mvps[i] if mvps is not None else mat4mul(view_proj, d.model)
+        setup, attrs10 = pipeline.prepare_draw(
+            d.mesh, d.model, view_proj, mvp,
+            d.normal_mat if d.normal_mat is not None else d.model, light,
+            d.color, d.shading, frame_w, frame_h, cull_backfaces, near_clip)
+        flags = pack_flags(d.shading == "phong",
+                           (d.sampling or sampling_mode) == "bilinear")
+        parts.append((setup.coef, setup.bbox, setup.valid,
+                      pack_payload(attrs10, m, flags)))
+    return pipeline.DrawBatch(*(torch.cat(x) for x in zip(*parts)), lut)
+
+
+def many_keys_frame(card, n_keys: int = 16, reps: int = 10):
+    """A frame of n_keys separate draw_mesh calls (distinct meshes, so
+    n_keys submission keys a frame), and the same frame with every mesh
+    copied anew for each call's frame and stage (no key ever recurs: every
+    call runs eager). Each against
+    the per-draw stage that the batched pass replaced (per_draw_pack),
+    interleaved per-draw, graph, graph, per-draw: frames bit-equal, host ms
+    per frame to a synchronise (median of reps), and the vertex stage
+    alone (pack_draws of the frame's draws)."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from dtrenderer_tpu_torch.models import primitives
+    from dtrenderer_tpu_torch.models.mesh import Mesh
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline, vertex_graph
+    from dtrenderer_tpu_torch.ops.shading import make_light
+    from dtrenderer_tpu_torch.utils import math3d
+
+    dev = torch.device(DEVICE)
+    w, h = 1920, 1080
+    tex = primitives.checkerboard(64, 8, device=dev)
+    proj = math3d.perspective(np.pi / 3, w / h, 0.1, 100.0, device=dev)
+    light = make_light((0.3, 0.7, 1.0), 0.15, device=dev)
+    meshes = [primitives.uv_sphere(12 + i % 4, 16 + 2 * (i % 3), device=dev)
+              for i in range(n_keys)]
+    fb0 = fblib.create(h, w, dev)
+
+    def model(i, t):
+        x, y = (i % 8) - 3.5, 1.2 * (i // 8) - 0.6
+        return math3d.model_matrix((x, y, -9.0),
+                                   math3d.rotate_y(t + 0.3 * i, device=dev),
+                                   0.5, device=dev)
+
+    def draws(frame_meshes, t):
+        return [pipeline.DrawSpec(m, model(i, t), texture=tex,
+                                  shading="phong" if i % 2 else "gouraud")
+                for i, m in enumerate(frame_meshes)]
+
+    def frame(specs):
+        out = fb0
+        for d in specs:
+            out = pipeline.draw_mesh(out, d.mesh, d.model, proj,
+                                     texture=d.texture, light=light,
+                                     shading=d.shading,
+                                     sampling_mode="bilinear",
+                                     backend="fused")
+        return out
+
+    def stage(specs):
+        return [pipeline.pack_draws([d], proj, light, "bilinear", w, h)
+                for d in specs]
+
+    def fresh():  # this frame's copies of the meshes, at new addresses
+        return [Mesh(*(t.clone() for t in m)) for m in meshes]
+
+    for name, make in (("recurring", lambda: meshes), ("fresh", fresh)):
+        vertex_graph.reset()
+        kept = []  # fresh copies stay alive, so no address comes back
+        specs = draws(meshes, 0.5)
+        want = None
+        with mock.patch.object(pipeline, "pack_draws", per_draw_pack):
+            want = frame(specs)
+        for _ in range(3):
+            kept.append(make())
+            got = frame(draws(kept[-1], 0.5))
+        bits_equal(f"{n_keys} keys a frame, {name} meshes", got, want)
+        ms, stage_ms = [], []  # per batch: (way, [ms])
+        before = (vertex_graph.EAGER, vertex_graph.CAPTURES,
+                  vertex_graph.REPLAYS)
+        for way in ("per-draw", "graph", "graph", "per-draw"):
+            with (mock.patch.object(pipeline, "pack_draws", per_draw_pack)
+                  if way == "per-draw" else contextlib.nullcontext()):
+                ms.append((way, []))
+                stage_ms.append((way, []))
+                for _ in range(reps):
+                    kept += [make(), make()]
+                    specs, specs_s = draws(kept[-2], 0.5), draws(kept[-1],
+                                                                  0.5)
+                    ms[-1][1].append(timed(lambda: frame(specs))[1])
+                    stage_ms[-1][1].append(timed(lambda: stage(specs_s))[1])
+        after = (vertex_graph.EAGER, vertex_graph.CAPTURES,
+                 vertex_graph.REPLAYS)
+        delta = tuple(a - b for a, b in zip(after, before))
+        calls = 2 * 2 * reps * n_keys  # frames and stages, two batches
+        want_delta = (0, 0, calls) if name == "recurring" else (calls, 0, 0)
+        if delta != want_delta:
+            raise AssertionError(f"{n_keys} keys a frame, {name}: (eager, "
+                                 f"captures, replays) {delta}, want "
+                                 f"{want_delta}")
+        def medians(batches):
+            both = {w: np.median([t for w2, ts in batches if w2 == w
+                                  for t in ts]) for w in ("per-draw", "graph")}
+            return (f"per-draw {both['per-draw']:.4f}, graph "
+                    f"{both['graph']:.4f} (batches "
+                    f"{', '.join(f'{np.median(ts):.4f}' for _, ts in batches)})")
+
+        print(f"many keys: {n_keys} draw_mesh calls a frame, {name} meshes "
+              f"({sum(m.faces.shape[0] for m in meshes)} triangles), "
+              f"frames bit-equal to the per-draw stage's; (eager, captures, "
+              f"replays) in the timed frames {delta}; captured keys "
+              f"{len(vertex_graph.stats())}; host ms a frame, median of "
+              f"{2 * reps} (per-draw, graph, graph, per-draw batches of "
+              f"{reps}): {medians(ms)}; the stage alone: "
+              f"{medians(stage_ms)} [{card}]")
+    vertex_graph.reset()
+
+
+def steady_device_frames(card, n_frames: int = 5):
+    """Each bench cell (bench_torch/cells.py), built here, after three
+    frames (its keys captured), traced over n_frames frames with the
+    bench's own profiler window (bench_torch/run.py traced): the device's
+    busy ms a frame of frames that only replay, beside the bench's traced
+    window, which holds a capture."""
+    import torch
+
+    from bench_torch import cells as bench_cells, run as bench_run
+    from dtrenderer_tpu_torch.ops import vertex_graph
+
+    dev = torch.device(DEVICE)
+    for cell in bench_cells.CELLS:
+        vertex_graph.reset()
+        work = cell.make(dev, False)
+        for _ in range(3):
+            work.frame()
+        torch.cuda.synchronize()
+        before = (vertex_graph.EAGER, vertex_graph.CAPTURES,
+                  vertex_graph.REPLAYS)
+        launches, prof = bench_run.traced(
+            work, dev, n_frames,
+            os.path.join(REPO, "bench_torch", "traces", "steady", cell.name))
+        eager, captures, replays = (
+            a - b for a, b in zip((vertex_graph.EAGER, vertex_graph.CAPTURES,
+                                   vertex_graph.REPLAYS), before))
+        if eager or captures or not replays:
+            raise AssertionError(f"{cell.name}: traced frames (eager, "
+                                 f"captures, replays) "
+                                 f"{(eager, captures, replays)}")
+        if launches != cell.launches:
+            raise AssertionError(f"{cell.name}: launches a frame {launches}, "
+                                 f"want {cell.launches}")
+        if prof is None:
+            raise AssertionError(f"{cell.name}: the profiler saw no device "
+                                 f"operation")
+        print(f"steady device time {cell.name}: {n_frames} traced frames of "
+              f"replays only, device_ms_per_frame "
+              f"{prof['device_ms_per_frame']:.4f}, busy share "
+              f"{prof['device_busy_share']:.4f}, window "
+              f"{prof['window_ms']:.3f} ms, replays a frame "
+              f"{replays / n_frames:.2f} [{card}]")
+        del work
+    vertex_graph.reset()
+
+
 # --------------------------------------------------------- reference check
 
 
@@ -1402,7 +1840,10 @@ def build_all():
     return mods
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--bands"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--bands]")
     if not os.path.isdir(os.path.join(REPO, "dtrenderer_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
                          "repository (dtrenderer_tpu_torch/ is missing)")
@@ -1438,6 +1879,13 @@ def main() -> int:
     print(f"scene set-up {time.perf_counter() - t0:.1f} s: config 4 "
           f"{cfg4.n_tris} tris, config 5 {cfg5.n_tris} tris, translucent "
           f"sphere {sphere.n_tris} tris")
+    if argv:  # --bands: the band split alone, over every card
+        band_paths(card, cfg4, cfg5, sphere)
+        band_graph_check(card, cfg5)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     k1_4 = k1_vs_plain(cfg4, card)
     k1_5 = k1_vs_plain(cfg5, card)
@@ -1461,6 +1909,10 @@ def main() -> int:
         launches[k] += n
     for k, n in band_paths(card, cfg4, cfg5, sphere).items():
         launches[k] += n
+    vertex_stage_graph(card, cfg4, cfg5, sphere)
+    band_graph_check(card, cfg5)
+    many_keys_frame(card)
+    steady_device_frames(card)
 
     stages_fused(cfg4, card)
     stages_fused(cfg5, card)

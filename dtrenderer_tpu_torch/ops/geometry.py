@@ -64,8 +64,23 @@ def _top_left(ax, ay, bx, by):
     return ((ay == by) & (bx < ax)) | (by < ay)
 
 
+def bbox_steps(width, height, device):
+    """The bbox's constants, i32 [2, 4]: the 1px slack added to (x0, y0, x1,
+    y1) and the frame's last column and row that clamp them."""
+    return torch.tensor([[-1, -1, 1, 1],
+                         [width - 1, height - 1, width - 1, height - 1]],
+                        dtype=I32, device=device)
+
+
 def triangle_setup_from_corners(p0, p1, p2, width, height, cull_backfaces=True):
     """Triangle setup from corner arrays [T,4] (sx, sy, sz, q)."""
+    return setup_with_steps(p0, p1, p2, width, height, cull_backfaces,
+                            bbox_steps(width, height, p0.device))
+
+
+def setup_with_steps(p0, p1, p2, width, height, cull_backfaces, step_and_hi):
+    """triangle_setup_from_corners with its bbox constants (bbox_steps) made
+    by the caller: no host-to-device copy, so a CUDA graph can capture it."""
     x0, y0, z0 = p0[:, 0], p0[:, 1], p0[:, 2]
     x1, y1, z1 = p1[:, 0], p1[:, 1], p1[:, 2]
     x2, y2, z2 = p2[:, 0], p2[:, 1], p2[:, 2]
@@ -127,9 +142,6 @@ def triangle_setup_from_corners(p0, p1, p2, width, height, cull_backfaces=True):
     edges = torch.stack([torch.floor(xmin), torch.floor(ymin),
                          torch.ceil(xmax), torch.ceil(ymax)], dim=-1)
     edges = to_i32(torch.clamp(edges, -1.0, float(max(width, height))))
-    step_and_hi = torch.tensor([[-1, -1, 1, 1],
-                                [width - 1, height - 1, width - 1, height - 1]],
-                               dtype=I32, device=edges.device)
     bbox = torch.minimum((edges + step_and_hi[0]).clamp_min(0), step_and_hi[1])
     # Off-screen triangles collapse to an empty bbox.
     offscreen = (xmax < 0) | (xmin >= width) | (ymax < 0) | (ymin >= height)

@@ -26,7 +26,9 @@ and the port's kernels take none.
 A draw is staged once (`stage_draw_mesh`, `stage_draw_mesh_ordered`: the
 vertex stage, which no shard of the frame changes) and rastered per shard
 (`raster_staged`); parallel/shard.py stages once per device and rasters once
-per band.
+per band. On a CUDA device a staged "fused" or "tile" draw holds graph
+memory (ops/vertex_graph.py): it is valid until the same draw is staged
+again, and raster_staged raises after that.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from dtrenderer_tpu_torch.ops.raster_ordered import render_ordered
 from dtrenderer_tpu_torch.ops.raster_pallas import rasterize_pallas
 from dtrenderer_tpu_torch.ops.raster_ref import rasterize_ref
 from dtrenderer_tpu_torch.ops.render_fused import (
-    TILE_H, TILE_W, make_texture_lut, pack_flags, pack_payload, render_fused,
+    TILE_H, TILE_W, render_fused,
 )
 from dtrenderer_tpu_torch.ops.shading import (
     SHADING_FLAT, SHADING_GOURAUD, SHADING_NONE, SHADING_PHONG, Light,
@@ -234,31 +236,33 @@ class DrawBatch(NamedTuple):
 def pack_draws(draws, view_proj, light: Light, sampling_mode: str,
                frame_w: int, frame_h: int, cull_backfaces: bool = True,
                near_clip: bool = True, mvps=None) -> DrawBatch:
-    """Vertex stage and packing for a list of DrawSpecs: per draw,
-    prepare_draw and pack_payload; then one concatenated coef/bbox/valid/
-    payload and one texture LUT. mvps optionally overrides each draw's
-    view_proj @ model."""
+    """Vertex stage and packing for a list of DrawSpecs: the batch of
+    prepare_draw and pack_payload of every draw, concatenated in draw
+    order, and one texture LUT (make_texture_lut's layout), computed in one
+    batched pass over all draws (ops/vertex_batch.py). mvps optionally
+    overrides each draw's view_proj @ model.
+
+    On a CUDA device the pass runs through ops/vertex_graph.py: eager the
+    first time a submission's key (its draws' modes, flags and the shapes
+    and addresses of their meshes and textures, the frame size; not the
+    values of matrices, light or colours) is seen, captured in a CUDA graph
+    the second time, replayed after that. Then the returned DrawBatch is
+    the graph's memory: it holds this call's values until the next replay
+    of the same key, which overwrites it in place. Every consumer in the
+    package (binning, the kernels, the merge) reads it on the stream of the
+    call before that replay; a caller that keeps a batch across frames
+    clones it."""
     _check_sampling(sampling_mode)
-    device = light.direction.device
-    white = white_texture(device=device)
-    tex_lut, meta = make_texture_lut(
-        [d.texture if d.texture is not None else white for d in draws])
-    coefs, bboxes, valids, payloads = [], [], [], []
-    for i, (d, m) in enumerate(zip(draws, meta)):
-        normal_mat = d.normal_mat if d.normal_mat is not None else d.model
-        mvp = mvps[i] if mvps is not None else mat4mul(view_proj, d.model)
-        setup, attrs10 = prepare_draw(
-            d.mesh, d.model, view_proj, mvp, normal_mat, light, d.color,
-            d.shading, frame_w, frame_h, cull_backfaces, near_clip,
-        )
-        flags = pack_flags(d.shading == SHADING_PHONG,
-                           (d.sampling or sampling_mode) == "bilinear")
-        payloads.append(pack_payload(attrs10, m, flags))
-        coefs.append(setup.coef)
-        bboxes.append(setup.bbox)
-        valids.append(setup.valid)
-    return DrawBatch(torch.cat(coefs), torch.cat(bboxes), torch.cat(valids),
-                     torch.cat(payloads), tex_lut)
+    if light.direction.device.type == "cuda":
+        from dtrenderer_tpu_torch.ops import vertex_graph
+
+        return vertex_graph.pack(draws, view_proj, light, sampling_mode,
+                                 frame_w, frame_h, cull_backfaces, near_clip,
+                                 mvps)
+    from dtrenderer_tpu_torch.ops import vertex_batch
+
+    return vertex_batch.pack(draws, view_proj, light, sampling_mode, frame_w,
+                             frame_h, cull_backfaces, near_clip, mvps)
 
 
 def _render_and_merge(fb: Framebuffer, batch: DrawBatch, light: Light,
@@ -405,7 +409,13 @@ class StagedDraw(NamedTuple):
     """The vertex stage of one draw_mesh / draw_mesh_ordered call: what every
     shard of the frame shares. route "fused" and "tile" carry a packed
     DrawBatch; "pallas", "ref" and "scan" the setup, the corner attributes
-    and the texture that shade_deferred / the scan loop read."""
+    and the texture that shade_deferred / the scan loop read.
+
+    A DrawBatch that a CUDA graph's replay made (pack_draws) is that graph's
+    memory: the next staging of the same submission (same meshes, textures,
+    modes and frame size) overwrites it. `stamp` (ops/vertex_graph.Stamp)
+    then makes raster_staged raise rather than draw the later frame's
+    geometry; None on the CPU and for an eager batch, which the draw owns."""
     route: str            # one of BACKENDS or ORDERED_ENGINES
     light: Light
     n_submitted: int      # FrameCounters.tris_submitted of the draw
@@ -417,6 +427,7 @@ class StagedDraw(NamedTuple):
     shading: str = SHADING_GOURAUD
     window: tuple[int, int] | None = None
     bands: BandOpts = BandOpts()
+    stamp: object = None  # vertex_graph.Stamp of a replayed batch
 
 
 def _stage(route, device, mesh, model, view_proj, frame_height, frame_width,
@@ -431,8 +442,13 @@ def _stage(route, device, mesh, model, view_proj, frame_height, frame_width,
         batch = pack_draws([spec], view_proj, light, sampling_mode,
                            frame_width, frame_height, cull_backfaces,
                            near_clip, mvps=None if mvp is None else [mvp])
+        stamp = None
+        if batch.coef.is_cuda:
+            from dtrenderer_tpu_torch.ops import vertex_graph
+
+            stamp = vertex_graph.stamp(batch)
         return StagedDraw(route, light, batch.coef.shape[0], batch=batch,
-                          **more)
+                          stamp=stamp, **more)
     if mvp is None:
         mvp = mat4mul(view_proj, model)
     setup, attrs10 = prepare_draw(
@@ -458,7 +474,10 @@ def stage_draw_mesh(device, mesh, model, view_proj, frame_height: int,
     """draw_mesh's checks and vertex stage for a frame of [frame_height,
     frame_width] pixels, with the scene inputs on `device`; draw_mesh's own
     keywords and defaults. raster_staged then renders any shard of that
-    frame."""
+    frame, until the same draw is staged again on a CUDA device: backend
+    "fused" there stages through a CUDA graph whose next replay overwrites
+    the batch, and raster_staged of the older StagedDraw raises (StagedDraw
+    says why)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     bands = band_opts(raster_opts, backend == "fused")
@@ -478,7 +497,9 @@ def stage_draw_mesh_ordered(device, mesh, model, view_proj,
                             window: tuple[int, int] | None = (64, 128),
                             engine: str = "auto",
                             raster_opts: dict | None = None) -> StagedDraw:
-    """draw_mesh_ordered's checks and vertex stage, as stage_draw_mesh."""
+    """draw_mesh_ordered's checks and vertex stage, as stage_draw_mesh
+    (engine "tile" on a CUDA device: valid until the same draw is staged
+    again)."""
     if engine == "auto":
         engine = "tile"
     if engine not in ORDERED_ENGINES:
@@ -495,9 +516,12 @@ def raster_staged(fb: Framebuffer, staged: StagedDraw, y_offset: int = 0,
     """Raster, shade and merge a staged draw into fb, the shard at (y_offset,
     x_offset) of the frame the draw was staged for. `bins` (route "fused"
     only) are this shard's ready Bins; without them the shard is binned
-    here."""
+    here. Raises RuntimeError when the same draw was staged again since on
+    a CUDA device (StagedDraw)."""
     h, w = fb.depth.shape
     route, light = staged.route, staged.light
+    if staged.stamp is not None:
+        staged.stamp.check()
     if route == "fused":
         return _render_and_merge(fb, staged.batch, light, y_offset, x_offset,
                                  return_counters, bins)

@@ -72,9 +72,10 @@ def make_texture_lut(textures):
     """Pack textures (premultiplied linear f32 [th, tw, 4], one device) into
     one texel-major LUT [L, 4] plus per-texture (base, tw, th) metadata.
 
-    The same tensor object passed twice is stored once. The total is capped at
-    2^24 texels: the metadata rides f32 payload channels, which hold integers
-    exactly only below 2^24."""
+    The same tensor object passed twice is stored once; one texture alone is
+    the LUT as it is (a view of it when it is f32 and contiguous), not a
+    copy. The total is capped at 2^24 texels: the metadata rides f32 payload
+    channels, which hold integers exactly only below 2^24."""
     rows = []
     meta = []
     base = 0
@@ -93,7 +94,8 @@ def make_texture_lut(textures):
     if base > 1 << 24:
         raise ValueError(f"texture LUT has {base} texels; the (base, tw, th) "
                          f"payload channels are exact only below 2^24")
-    return torch.cat(rows, dim=0).to(F32).contiguous(), meta
+    lut = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+    return lut.to(F32).contiguous(), meta
 
 
 def check_inputs(coef, bins: Bins, height: int, width: int, payload=None,

@@ -28,6 +28,15 @@ Deliberate differences from the reference:
   (`draw_mesh_sharded`, `draw_mesh_ordered_sharded`). A caller's own band
   function (`render_frames_sharded`) calls `draw_mesh` itself, so there the
   vertex stage runs once per band.
+- On a card a staged draw's batch is the memory of a CUDA graph
+  (ops/vertex_graph.py), which the next replay of its key overwrites. The
+  join above orders that replay after every band that reads the batch; a
+  band job that replays on its own stream (`render_frames_sharded`) is
+  ordered after the previous replay's stream by vertex_graph itself. The
+  graph's key holds the addresses of the mesh and texture, so a scene
+  tensor moved to another device is copied, on every draw, into the same
+  copy there (`_mirror`), kept for as long as the tensor lives: the other
+  cards replay their graphs as the scene's own card does.
 - Host synchronisation inside a band's work (binning's `repeat_interleave`
   and bucket cuts, `shade_deferred`'s `nonzero`) makes the one thread wait
   there, so bands whose route has such a point are enqueued one after the
@@ -37,6 +46,7 @@ Deliberate differences from the reference:
 from __future__ import annotations
 
 import inspect
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -200,11 +210,38 @@ def gather_image(fb: ShardedFramebuffer) -> np.ndarray:
     return gather_fb(fb).color.cpu().numpy()
 
 
+_MIRRORS: dict = {}  # (id(tensor), device) -> (weakref(tensor), its copy)
+
+
+def _mirror(device: torch.device, src: torch.Tensor) -> torch.Tensor:
+    """src's copy on `device`, refreshed from src on every call, in the same
+    memory from call to call while src lives (and dropped with it), so that
+    a key of ops/vertex_graph.py that holds its address recurs."""
+    key = (id(src), str(device))
+    hit = _MIRRORS.get(key)
+    if hit is not None:
+        ref, dst = hit
+        if ref() is src and (dst.shape, dst.stride(), dst.dtype) == (
+                src.shape, src.stride(), src.dtype):
+            return dst.copy_(src)
+    dst = torch.empty_like(src, device=device).copy_(src)
+    _MIRRORS[key] = (weakref.ref(src, lambda _: _MIRRORS.pop(key, None)),
+                     dst)
+    return dst
+
+
+def _here(t: torch.Tensor, device: torch.device) -> bool:
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return t.device == device
+
+
 def _to(device, obj):
     """obj with every tensor in it (through tuples, NamedTuples, lists and
-    dicts) on `device`; tensors already there are not copied."""
+    dicts) on `device`; tensors already there are not copied, the others
+    are copied into their _mirror."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return obj if _here(obj, device) else _mirror(device, obj)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*(_to(device, x) for x in obj))
     if isinstance(obj, (tuple, list)):

@@ -348,6 +348,8 @@ def test_port_imports_no_jax():
         "import dtrenderer_tpu_torch.ops.pipeline, dtrenderer_tpu_torch.ops.sampling\n"
         "import dtrenderer_tpu_torch.ops.raster_ref, dtrenderer_tpu_torch.ops.raster_pallas\n"
         "import dtrenderer_tpu_torch.ops.raster_ordered\n"
+        "import dtrenderer_tpu_torch.ops.vertex_batch\n"
+        "import dtrenderer_tpu_torch.ops.vertex_graph\n"
         "import dtrenderer_tpu_torch.ops.draw2d, dtrenderer_tpu_torch.ops.text\n"
         "import dtrenderer_tpu_torch.api, dtrenderer_tpu_torch.platform\n"
         "import dtrenderer_tpu_torch.tools.demo, dtrenderer_tpu_torch.tools.cli\n"

@@ -483,6 +483,26 @@ def test_scene_inputs_move_once_per_distinct_device(cube, monkeypatch):
     assert calls == {"stage": 1, "raster": 8}
 
 
+def test_a_scene_tensor_keeps_one_copy_per_device_while_it_lives():
+    """_to copies a tensor from another device into the same copy on every
+    call (refreshed), so a graph keyed on its address recurs; the copy goes
+    with the tensor. ("meta" stands in for another card.)"""
+    import gc
+
+    meta = torch.device("meta")
+    verts = torch.arange(12.0).reshape(4, 3)
+    first = pshard._to(meta, (verts, {"m": verts}))
+    again = pshard._to(meta, [verts])
+    assert first[0] is first[1]["m"] is again[0]
+    assert first[0].device == meta and first[0].shape == verts.shape
+    assert pshard._to(CPU, verts) is verts  # already there: no copy
+    key = (id(verts), str(meta))
+    assert key in pshard._MIRRORS
+    del verts, first, again
+    gc.collect()
+    assert key not in pshard._MIRRORS
+
+
 # ------------------------------------------------------- what must raise
 
 
