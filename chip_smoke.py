@@ -9,9 +9,10 @@
 Run from the root of a checkout. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile the three kernels (csrc/render_fused.cu = K1,
-     csrc/raster_visibility.cu = K2, csrc/render_ordered.cu = K3), one nvcc
-     per source, all started together; seconds, registers and spills;
+  2. build: compile the four kernels (csrc/render_fused.cu = K1,
+     csrc/raster_visibility.cu = K2, csrc/render_ordered.cu = K3,
+     csrc/vertex_pass.cu = VP, the vertex stage), one nvcc per source, all
+     started together; seconds, registers and spills;
   3. kernel vs plain twin at the main paths' shapes, both timed with CUDA
      events (plain, kernel, kernel, plain):
        K1 at config 4 (1920x1080) and config 5 (3840x2160, 1,000,000
@@ -34,7 +35,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      centres and along sub-block borders, each as a whole frame and as
      ragged shards at non-zero offsets;
   4. main paths through the public entry points, each with every kernel's
-     launch count set to 0 just before and read just after:
+     launch count set to 0 just before and read just after (VP: at least
+     once per pack_draws call on "fused" and "tile", counted by
+     vertex_batch.run_pass and by every replay of a graph that captured it;
+     never on "pallas"):
        config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
          frames: one K1 launch per frame;
        config 5 on backend "pallas", 2 frames: one K2 launch per frame;
@@ -75,7 +79,18 @@ Run from the root of a checkout. Phases, each of which raises on failure:
        the translucent sphere, 1080p, 8 bands of 135 rows through
          draw_mesh_ordered_sharded, 2 frames: 8 K3 launches a frame;
        tools.dryrun over 8 cells, in-process;
-  6. vertex stage graph (ops/vertex_graph.py): for the fill scene, config
+  6. vertex kernel vs plain twin: vertex_batch.run_pass (VP) against
+     run_pass_plain on the same plan and frame vector, every DrawBatch
+     field bit for bit, invalid rows included (NaN at the same places), for
+     the bench cells' runs (fill, config 4, soup, config 5, the translucent
+     sphere, the API frame's render_meshes run), config 4 with the
+     translucent sphere between its opaque runs, config 4 with near clip off
+     and culling off, every case of models/edge_cases.py and the shapes of
+     models/stress.py in the four shading modes; the cells' runs timed (a
+     loop of 200 launches of the ctypes entry; run_pass against the plain
+     pass, plain, kernel, kernel, plain) against the bound by bytes;
+     vertex stage graph (ops/vertex_graph.py), with VP inside the graph:
+     for the fill scene, config
      4, the soup, config 5, the translucent sphere and the API frame's
      render_meshes run, pipeline.pack_draws replayed from its CUDA graph
      bit-equal to the eager pass (vertex_batch.pack) at t = 0.5 (first
@@ -592,20 +607,37 @@ def stress_vs_plain():
 
 def reset_counts():
     from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
-    from dtrenderer_tpu_torch.ops import render_fused
+    from dtrenderer_tpu_torch.ops import render_fused, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
 
     render_fused.KERNEL_LAUNCHES = 0
     raster_pallas.KERNEL_LAUNCHES = 0
     raster_ordered.KERNEL_LAUNCHES = 0
+    vertex_batch.KERNEL_LAUNCHES = 0
+    vertex_graph.REPLAYS = 0
 
 
 def read_counts() -> dict:
+    """Launches of each kernel since reset_counts; "VP", the vertex kernel,
+    is launched by vertex_batch.run_pass and by every replay of a graph
+    that captured it (vertex_graph.REPLAYS)."""
     from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
-    from dtrenderer_tpu_torch.ops import render_fused
+    from dtrenderer_tpu_torch.ops import render_fused, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
 
     return {"K1": render_fused.KERNEL_LAUNCHES,
             "K2": raster_pallas.KERNEL_LAUNCHES,
-            "K3": raster_ordered.KERNEL_LAUNCHES}
+            "K3": raster_ordered.KERNEL_LAUNCHES,
+            "VP": vertex_batch.KERNEL_LAUNCHES + vertex_graph.REPLAYS}
+
+
+def launches_ok(got: dict, want: dict) -> bool:
+    """K1, K2 and K3 launched exactly as `want` says; the vertex kernel at
+    least want["VP"] times (once per pack_draws call: a capture's first
+    call launches it twice, warm-up and replay), or never when that is 0
+    (the "pallas" and "ref" routes stage with prepare_draw)."""
+    vp_ok = got["VP"] >= want["VP"] if want["VP"] else got["VP"] == 0
+    return vp_ok and all(got[k] == want[k] for k in ("K1", "K2", "K3"))
 
 
 def frames(scene, n: int, card, tag: str):
@@ -645,7 +677,7 @@ def main_path(tag, runs, want: dict, card) -> dict:
     for scene, n in runs:
         frames(scene, n, card, f"{tag}: {scene.name}")
     got = read_counts()
-    if got != want:
+    if not launches_ok(got, want):
         raise AssertionError(f"{tag}: kernel launches {got}, want {want}")
     print(f"{tag}: kernel launches {got}")
     return got
@@ -713,8 +745,8 @@ def api_frame_path(card) -> dict:
     state, n, _ = platform.run_app(update, api.new_state(w, h, device=dev), 3,
                                    script)
     got = read_counts()
-    want = {"K1": 3, "K2": 0, "K3": 3}
-    if got != want or n != 3:
+    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6}
+    if not launches_ok(got, want) or n != 3:
         raise AssertionError(f"API frame: kernel launches {got}, want {want}")
     if torch.equal(images[0], images[2]):
         raise AssertionError("API frame: frames 0 and 2 are the same image")
@@ -744,8 +776,8 @@ def api_frame_path(card) -> dict:
         api.new_state(w, h, device=dev), 0.6, frame.cube, frame.ball,
         frame.tex, frame.grad, "pallas"))
     got2 = read_counts()
-    want2 = {"K1": 0, "K2": 3, "K3": 0}
-    if got2 != want2:
+    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 0}
+    if not launches_ok(got2, want2):
         raise AssertionError(f"demo frame on pallas: kernel launches {got2}, "
                              f"want {want2}")
     compare("demo frame 1920x1080, backend pallas vs fused",
@@ -931,7 +963,7 @@ def counted(tag, want: dict, total: dict, fn):
     reset_counts()
     out = fn()
     got = read_counts()
-    if got != want:
+    if not launches_ok(got, want):
         raise AssertionError(f"{tag}: kernel launches {got}, want {want}")
     for k, n in got.items():
         total[k] += n
@@ -992,7 +1024,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     from dtrenderer_tpu_torch.utils.benchlib import device_time
 
     dev = torch.device(DEVICE)
-    total = {"K1": 0, "K2": 0, "K3": 0}
+    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0}
     rows = 8
     mesh8 = shard.make_mesh(frames=1, rows=rows)
     mesh42 = shard.make_mesh(frames=1, rows=4, cols=2)
@@ -1014,7 +1046,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
 
     single = {}
     for backend, key in (("fused", "K1"), ("pallas", "K2")):
-        want = {"K1": 0, "K2": 0, "K3": 0, key: 2}
+        want = {"K1": 0, "K2": 0, "K3": 0, key: 2,
+                "VP": 2 if backend == "fused" else 0}
         single[backend], times = counted(
             f"config 5 {backend} single launch", want, total,
             lambda: timed_frames(lambda: pipeline.draw_mesh(
@@ -1032,7 +1065,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     for way, opts in ways:
         got, times = counted(
             f"config 5 fused, {rows} bands, {way}",
-            {"K1": 2 * rows, "K2": 0, "K3": 0}, total,
+            {"K1": 2 * rows, "K2": 0, "K3": 0, "VP": 2}, total,
             lambda: timed_frames(lambda: sharded5("fused", opts), 2))
         bits_equal(f"config 5 fused, {rows} bands, {way}", got,
                    single["fused"])
@@ -1045,7 +1078,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
                                                    band_shared=False))]:
         got, times = counted(
             f"config 5 draw_mesh row_bands, {way}",
-            {"K1": rows, "K2": 0, "K3": 0}, total,
+            {"K1": rows, "K2": 0, "K3": 0, "VP": 1}, total,
             lambda: timed_frames(lambda: pipeline.draw_mesh(
                 fb5, d.mesh, d.model, sub.view_proj, backend="fused",
                 raster_opts=opts, **kw), 1))
@@ -1060,14 +1093,15 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     iters = 5
     per_call = counted(
         "config 5 row_bands shared, device_time",
-        {"K1": rows * (iters + 1), "K2": 0, "K3": 0}, total,
+        {"K1": rows * (iters + 1), "K2": 0, "K3": 0, "VP": iters + 1},
+        total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused",
             raster_opts=ways[1][1], **kw), device=fb5.depth.device,
             iters=iters, warmup_iters=1))
     whole_call = counted(
         "config 5 single launch, device_time",
-        {"K1": iters + 1, "K2": 0, "K3": 0}, total,
+        {"K1": iters + 1, "K2": 0, "K3": 0, "VP": iters + 1}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused", **kw),
             device=fb5.depth.device, iters=iters, warmup_iters=1))
@@ -1077,8 +1111,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
           f"{whole_call * 1e3:.3f} ms a call [{card}]")
 
     got, times = counted(
-        f"config 5 pallas, {rows} bands", {"K1": 0, "K2": 2 * rows, "K3": 0},
-        total, lambda: timed_frames(lambda: sharded5("pallas", None), 2))
+        f"config 5 pallas, {rows} bands",
+        {"K1": 0, "K2": 2 * rows, "K3": 0, "VP": 0}, total, lambda: timed_frames(lambda: sharded5("pallas", None), 2))
     bits_equal(f"config 5 pallas, {rows} bands", got, single["pallas"])
     print(f"band paths: config 5 pallas, {rows} bands, per band binning: z "
           f"and colour bit-equal to the single launch, K2 {rows} launches a "
@@ -1147,7 +1181,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     want4 = fblib.Framebuffer(*cfg4.frame(fb4.color, fb4.depth, 0.5))
     cut4 = shard.create_sharded_fb(h4, w4, mesh42, batch=1)
     got, times = counted(
-        "config 4, 4 x 2 tiles", {"K1": 2 * 8, "K2": 0, "K3": 0}, total,
+        "config 4, 4 x 2 tiles", {"K1": 2 * 8, "K2": 0, "K3": 0, "VP": 2},
+        total,
         lambda: timed_frames(lambda: shard.gather_fb(
             shard.render_frames_sharded(band_fn, cut4, mesh42, t4), dev),
             2))
@@ -1165,11 +1200,12 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     fbs = fblib.clear(fblib.create(hs, ws, dev), [0.02, 0.02, 0.05, 1.0])
     cuts = shard.shard_fb(fbs, mesh8)
     want_s, t_one = counted(
-        "sphere single launch", {"K1": 0, "K2": 0, "K3": 2}, total,
+        "sphere single launch", {"K1": 0, "K2": 0, "K3": 2, "VP": 2}, total,
         lambda: timed_frames(lambda: pipeline.draw_mesh_ordered(
             fbs, ds.mesh, ds.model, subs.view_proj, **kws), 2))
     got, times = counted(
-        f"sphere, {rows} bands", {"K1": 0, "K2": 0, "K3": 2 * rows}, total,
+        f"sphere, {rows} bands",
+        {"K1": 0, "K2": 0, "K3": 2 * rows, "VP": 2}, total,
         lambda: timed_frames(lambda: shard.gather_fb(
             shard.draw_mesh_ordered_sharded(
                 cuts, ds.mesh, ds.model, subs.view_proj, mesh8, **kws), dev),
@@ -1187,6 +1223,183 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
           f"[{card}]")
     print(f"band paths: kernel launches {total}")
     return total
+
+
+# ------------------------------------------------- vertex kernel vs twin
+
+# float32 operations of the vertex kernel, counted from csrc/vertex_pass.cu
+# (an upper count; the bytes bound it by far):
+VP_CORNER_OPS = 56   # clip position 24; the mode's columns: normal 15 and
+                     # light 17 (Gouraud), the most of the four modes
+VP_ROW_OPS = 130     # viewport 30, edges and area 22, sign 10, 1/area,
+                     # fill rule 12, bbox 20, q-premultiplied corners 27, ...
+VP_CLIP_OPS = 135    # three intersections: 2 sub, 1 div, clamp, 13 lerps
+
+
+def api_submission_fn(dev):
+    """The API frame's render_meshes run at time t (tools/demo.py)."""
+    import numpy as np
+
+    from dtrenderer_tpu_torch.models import primitives
+    from dtrenderer_tpu_torch.models.scenes import Submission
+    from dtrenderer_tpu_torch.tools import demo
+
+    cube = primitives.cube(device=dev)
+    ball = primitives.uv_sphere(24, 32, device=dev)
+    tex = primitives.checkerboard(64, 8, (1.0, 0.85, 0.3, 1.0),
+                                  (0.15, 0.15, 0.5, 1.0), device=dev)
+    grad = primitives.gradient_texture(64, device=dev)
+
+    def submission(t):
+        proj, light, draws = demo.demo_draws(np.float32(t), 1920, 1080, cube,
+                                             ball, tex, grad, dev)
+        return Submission(proj, draws, light, "bilinear", True)
+
+    return submission
+
+
+def same_batch_nan(tag, got, want) -> int:
+    """Two DrawBatches bit-equal, every row (f32 as int32 bit patterns; a
+    NaN may be any NaN, at the same places). Returns the NaN count."""
+    import torch
+
+    n_nan = 0
+    for name, a, b in zip(("coef", "bbox", "valid", "payload", "tex_lut"),
+                          got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{tag}: {name} {a.dtype} "
+                                 f"{tuple(a.shape)} against {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if a.dtype == torch.float32:
+            nan = torch.isnan(a)
+            if not torch.equal(nan, torch.isnan(b)):
+                raise AssertionError(f"{tag}: {name} NaN at other places")
+            n_nan += int(nan.sum())
+            a = torch.where(nan, 0, a.view(torch.int32))
+            b = torch.where(nan, 0, b.view(torch.int32))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs from the plain "
+                                 f"pass at {int((a != b).sum())} elements")
+    return n_nan
+
+
+def vertex_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
+    """csrc/vertex_pass.cu (vertex_batch.run_pass on the card) against
+    run_pass_plain on the same plan and frame vector, every DrawBatch field
+    bit for bit, invalid rows included (NaN at the same places): the bench
+    cells' runs (fill, config 4, soup, config 5, the translucent sphere, the
+    API frame's render_meshes run), config 4 with the translucent sphere
+    between its opaque runs, config 4 with near clip off and culling off,
+    every case of models/edge_cases.py and the shapes of models/stress.py
+    in the four shading modes. The cells' runs are timed: the kernel's
+    ctypes entry in a loop of 200 launches, run_pass (kernel) against
+    run_pass_plain (plain, kernel, kernel, plain), and the bound by bytes
+    (faces and the vertex arrays the modes read, each distinct tensor once,
+    the frame vector and the table in; coef, bbox, valid, payload out).
+    Returns per cell (0, run_pass ms, plain ms, bound, loop readings)."""
+    import torch
+
+    from bench_torch import scenes as bench_scenes
+    from dtrenderer_tpu_torch.kernels import vertex_pass as kv
+    from dtrenderer_tpu_torch.models import edge_cases as ec, stress
+    from dtrenderer_tpu_torch.ops import vertex_batch as vb
+    from dtrenderer_tpu_torch.ops.pipeline import DrawSpec
+    from dtrenderer_tpu_torch.ops.shading import make_light
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    # (tag, draws, view_proj, light, sampling, w, h, cull, near, timed)
+    runs = []
+    for name, spec in (
+            ("fill_six_spheres_1080p", bench_scenes.fill_scene(device=dev)),
+            ("config4_1080p", cfg4),
+            ("soup_200k_1080p", bench_scenes.soup_scene(device=dev)),
+            ("config5_4k_1m", cfg5), ("ordered_sphere_1080p", sphere),
+            ("api_frame_1080p", None)):
+        w, h = (1920, 1080) if spec is None else (spec.width, spec.height)
+        sub = (api_submission_fn(dev) if spec is None else spec.submission)(
+            0.5)
+        runs.append((name, sub.draws, sub.view_proj, sub.light,
+                     sub.sampling_mode, w, h, True, sub.near_clip, True))
+    sub4 = cfg4.submission(0.5)
+    head, cube, ball, ball2 = sub4.draws
+    trans = DrawSpec(ball.mesh, ball.model, color=(0.8, 0.5, 0.9, 0.6),
+                     shading="phong")
+    base4 = (sub4.view_proj, sub4.light, sub4.sampling_mode, cfg4.width,
+             cfg4.height)
+    for tag, draws in (("[head, cube]", [head, cube]),
+                       ("translucent sphere", [trans]),
+                       ("[sphere 2]", [ball2])):
+        runs.append((f"mixed_config4 {tag}", draws, *base4, True, True,
+                     False))
+    runs.append(("config4 near clip off", sub4.draws, *base4, True, False,
+                 False))
+    runs.append(("config4 culling off", sub4.draws, *base4, False, True,
+                 False))
+    light = make_light(*ec.LIGHT, device=dev)
+    for make in ec.CASES.values():
+        c = make()
+        runs.append((f"edge case {c.name!r}", ec.draw_specs(c, dev),
+                     torch.from_numpy(c.view_proj).to(dev), light, "nearest",
+                     c.width, c.height, c.cull_backfaces, c.near_clip, False))
+    eye = torch.eye(4, device=dev)
+    for sname, make in stress.CASES.items():
+        corners, h, w = make()
+        mesh = stress.mesh_of_corners(corners, h, w, dev)
+        for mode in ("flat", "gouraud", "phong", "none"):
+            runs.append((f"stress {sname} {mode}",
+                         [DrawSpec(mesh, eye, shading=mode,
+                                   color=(0.9, 0.6, 0.3, 1.0))],
+                         eye, light, "nearest", w, h, False, True, False))
+
+    out = {}
+    for tag, draws, view_proj, lt, sampling, w, h, cull, near, timed in runs:
+        plan = vb.plan_run(draws, sampling, w, h, cull, near, False, dev)
+        vec = vb.frame_vector(plan, draws, view_proj, lt)
+        got = vb.run_pass(plan, vec, draws)
+        want = vb.run_pass_plain(plan, vec, draws)
+        torch.cuda.synchronize()
+        n_nan = same_batch_nan(f"vertex kernel {tag}", got, want)
+        line = (f"vertex kernel vs plain, {tag} {w}x{h}: {plan.n_draws} "
+                f"draw(s), {plan.n_rows} setup rows, {int(got.valid.sum())} "
+                f"valid, NaN {n_nan}: bit-equal")
+        if not timed:
+            print(line)
+            continue
+        mvps = vb._mvps(plan, vec[:16 * plan.n_mats].view(plan.n_mats, 4,
+                                                         4)).contiguous()
+        outs = [torch.empty_like(x) for x in got[:4]]
+        loop = launch_loop_ms(lambda: kv.launch(
+            plan.table, plan.heads, vec, mvps, *outs, plan.n_tris,
+            plan.light_at, w, h, cull, near))
+        torch.cuda.synchronize()
+        same_batch_nan(f"vertex kernel {tag}, launch loop",
+                       [*outs, got.tex_lut], got)
+        k_ms, p_ms, r = interleaved_ms(lambda: vb.run_pass(plan, vec, draws),
+                                       lambda: vb.run_pass_plain(plan, vec,
+                                                                 draws), 20)
+        inputs = {}
+        for d in draws:
+            names = ["faces", "verts", "uv"]
+            if d.shading in ("gouraud", "phong"):
+                names.append("normals")
+            for n in names:
+                t = getattr(d.mesh, n)
+                inputs[(t.data_ptr(), n)] = t
+        n_bytes = nbytes(*inputs.values(), vec, plan.table, plan.heads,
+                         *got[:4])
+        ops = plan.n_tris * (3 * VP_CORNER_OPS + (
+            VP_CLIP_OPS + 2 * VP_ROW_OPS if near else VP_ROW_OPS))
+        b = bound(n_bytes, ops)
+        print(f"{line}; kernel loop of 200 {loop[0]:.4f}, {loop[1]:.4f} ms, "
+              f"run_pass {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), plain "
+              f"{p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), bound "
+              f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops), "
+              f"loop / bound {min(loop) / b[0]:.2f} [{card}]")
+        out[tag] = (0.0, k_ms, p_ms, b, loop)
+    print(f"vertex kernel vs plain: {len(runs)} runs bit-equal, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------ vertex stage graph
@@ -1223,25 +1436,12 @@ def vertex_stage_graph(card, cfg4, cfg5, sphere):
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from bench_torch import scenes as bench_scenes
-    from dtrenderer_tpu_torch.models import primitives
-    from dtrenderer_tpu_torch.models.scenes import Submission
     from dtrenderer_tpu_torch.ops import fb as fblib, pipeline, vertex_batch
     from dtrenderer_tpu_torch.ops import vertex_graph
     from dtrenderer_tpu_torch.ops.pipeline import DrawSpec, draw_meshes
-    from dtrenderer_tpu_torch.tools import demo
 
     dev = torch.device(DEVICE)
-    cube = primitives.cube(device=dev)
-    ball = primitives.uv_sphere(24, 32, device=dev)
-    tex = primitives.checkerboard(64, 8, (1.0, 0.85, 0.3, 1.0),
-                                  (0.15, 0.15, 0.5, 1.0), device=dev)
-    grad = primitives.gradient_texture(64, device=dev)
-
-    def api_submission(t):
-        proj, light, draws = demo.demo_draws(np.float32(t), 1920, 1080, cube,
-                                             ball, tex, grad, dev)
-        return Submission(proj, draws, light, "bilinear", True)
-
+    api_submission = api_submission_fn(dev)
     scenes = [(s.name, s.width, s.height, s.submission) for s in (
         bench_scenes.fill_scene(device=dev), cfg4,
         bench_scenes.soup_scene(device=dev), cfg5, sphere)]
@@ -1696,8 +1896,9 @@ def edge_cases_check() -> dict:
     torch.cuda.synchronize()
     got = read_counts()
     n_draws = sum(len(c.draws) for c in cases)
-    want = {"K1": len(cases), "K2": n_draws, "K3": n_draws}
-    if got != want:
+    want = {"K1": len(cases), "K2": n_draws, "K3": n_draws,
+            "VP": len(cases) + n_draws}
+    if not launches_ok(got, want):
         raise AssertionError(f"edge cases: kernel launches {got}, want {want}")
     for case in cases:
         h, w = case.height, case.width
@@ -1825,9 +2026,9 @@ def draw2d_text_check():
 def build_all():
     """One nvcc per kernel source, all started together."""
     from dtrenderer_tpu_torch.kernels import raster_visibility, render_fused
-    from dtrenderer_tpu_torch.kernels import render_ordered
+    from dtrenderer_tpu_torch.kernels import render_ordered, vertex_pass
 
-    mods = (render_fused, raster_visibility, render_ordered)
+    mods = (render_fused, raster_visibility, render_ordered, vertex_pass)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         infos = list(ex.map(lambda m: m.library()[1], mods))
@@ -1862,11 +2063,16 @@ def main(argv=None) -> int:
 
     from dtrenderer_tpu_torch.models import scenes
     from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.ops import vertex_batch
 
-    for m in build_all():
+    *raster, vp = build_all()
+    for m in raster:
         if m.tile_shape() != (rf.TILE_H, rf.TILE_W):
             raise AssertionError(f"{m.SOURCE} tile {m.tile_shape()} != "
                                  f"{(rf.TILE_H, rf.TILE_W)}")
+    if vp.table_cols() != vertex_batch.TABLE_COLS:
+        raise AssertionError(f"{vp.SOURCE} table of {vp.table_cols()} "
+                             f"columns != {vertex_batch.TABLE_COLS}")
 
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -1894,13 +2100,16 @@ def main(argv=None) -> int:
     k3 = k3_vs_plain(sphere, card)
     stress_vs_plain()
 
-    launches = {"K1": 0, "K2": 0, "K3": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0}
     paths = [
-        ("K1 path", [(cfg4, 3), (cfg5, 2)], {"K1": 5, "K2": 0, "K3": 0}),
-        ("K2 path config 5", [(cfg5p, 2)], {"K1": 0, "K2": 2, "K3": 0}),
-        ("K2 path config 4", [(cfg4p, 2)], {"K1": 0, "K2": 8, "K3": 0}),
-        ("K3 path", [(sphere, 3)], {"K1": 0, "K2": 0, "K3": 3}),
-        ("mixed path", [(mixed, 2)], {"K1": 4, "K2": 0, "K3": 2}),
+        ("K1 path", [(cfg4, 3), (cfg5, 2)],
+         {"K1": 5, "K2": 0, "K3": 0, "VP": 5}),
+        ("K2 path config 5", [(cfg5p, 2)],
+         {"K1": 0, "K2": 2, "K3": 0, "VP": 0}),
+        ("K2 path config 4", [(cfg4p, 2)],
+         {"K1": 0, "K2": 8, "K3": 0, "VP": 0}),
+        ("K3 path", [(sphere, 3)], {"K1": 0, "K2": 0, "K3": 3, "VP": 3}),
+        ("mixed path", [(mixed, 2)], {"K1": 4, "K2": 0, "K3": 2, "VP": 6}),
     ]
     for tag, runs, want in paths:
         for k, n in main_path(tag, runs, want, card).items():
@@ -1909,6 +2118,7 @@ def main(argv=None) -> int:
         launches[k] += n
     for k, n in band_paths(card, cfg4, cfg5, sphere).items():
         launches[k] += n
+    vp = vertex_kernel_vs_plain(card, cfg4, cfg5, sphere)
     vertex_stage_graph(card, cfg4, cfg5, sphere)
     band_graph_check(card, cfg5)
     many_keys_frame(card)
@@ -1950,6 +2160,15 @@ def main(argv=None) -> int:
               surviving_bits=k2_5[4], surviving_bits_config4_1080p=k2_4[4]),
         entry("render_ordered", "render_ordered.cu",
               "dtrenderer_tpu/ops/raster_ordered.py:51", "K3", k3),
+        entry("vertex_pass", "vertex_pass.cu",
+              "dtrenderer_tpu/ops/pipeline.py:134 prepare_draw (the "
+              "XLA-fused vertex stage: no pl.pallas_call)", "VP",
+              vp["config5_4k_1m"], **{
+                  f"{k}_{name}": v for name, res in vp.items()
+                  if name != "config5_4k_1m"
+                  for k, v in (("ms", res[1]), ("plain_ms", res[2]),
+                               ("bound_ms", res[3][0]),
+                               ("launch_loop_ms", list(res[-1])))}),
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

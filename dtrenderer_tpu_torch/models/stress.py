@@ -4,7 +4,8 @@ Shapes the package's scenes do not reach: a tile whose bin is deeper than
 two staging chunks of the kernels, and a triangle grid whose shared edges
 run exactly through pixel centres and along the kernels' sub-block borders
 (every E == 0 top-left decision, per pixel and per sub-block corner). The
-CPU tests, the `gpu` tests and chip_smoke.py share them (`CASES`, `windows`).
+CPU tests, the `gpu` tests and chip_smoke.py share them (`CASES`, `windows`,
+`mesh_of_corners` for the vertex stage).
 Each generator returns numpy corners f32 [T, 3, 4] of (sx, sy, sz, q), made
 from a seed; `setup` and `payload` turn them into the kernels' inputs.
 """
@@ -68,6 +69,21 @@ def setup(corners, height, width, device):
     return geometry.triangle_setup_from_corners(t[:, 0], t[:, 1], t[:, 2],
                                                 width, height,
                                                 cull_backfaces=False)
+
+
+def mesh_of_corners(corners, height, width, device):
+    """A mesh that an identity model and view-projection put at the screen
+    corners [T, 3, 4] (unwelded, three vertices a triangle): the vertex
+    stage's input for these shapes."""
+    from dtrenderer_tpu_torch.models import edge_cases
+    from dtrenderer_tpu_torch.models.mesh import make_mesh
+
+    c = np.asarray(corners, np.float32)
+    verts = edge_cases.screen_vertices(
+        c[..., :2].reshape(-1, 2), height, width,
+        z_ndc=2.0 * c[..., 2].reshape(-1) - 1.0)
+    return make_mesh(verts, None, None, np.arange(len(verts)).reshape(-1, 3),
+                     device=device)
 
 
 def payload(corners, seed, device):

@@ -17,13 +17,25 @@ the last one in a CUDA graph and replay it:
 
 - `plan_run`: what the submission's key fixes, made once, on the device:
   the draws' grouping by shading mode, the index rows, the payload head
-  rows, the texture LUT's layout and the bbox constants;
+  rows, the texture LUT's layout, the bbox constants, and the per-draw
+  table the kernel reads (`TABLE_*` columns: first triangle, mode, the
+  meshes' addresses and strides, the offsets of each draw's matrices and
+  colour in the frame vector);
 - `frame_inputs`: what changes from frame to frame (view_proj, the draws'
   model, normal and mvp matrices, the light, the colours), as the tensors
   and host values of one f32 vector (`frame_vector` joins them);
 - `run_pass(plan, vec, draws)`: device ops only, with no host synchronise
   and no host-to-device copy. It reads the draws' meshes and textures where
   they lie.
+
+On a CUDA plan `run_pass` launches the hand-written kernel
+csrc/vertex_pass.cu (one thread per source triangle: gather, transform,
+light, near clip, setup and packing in registers) and counts it in
+`KERNEL_LAUNCHES`; on a CPU plan it runs `run_pass_plain`, the same
+function in plain torch (the element-wise pass described above), to which
+the kernel is held bit for bit. There is no fallback between the two: any
+other device raises, and so does a mesh the kernel does not read (it takes
+f32 verts, uv and normals and i64 or i32 faces, at any strides).
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import torch
 from dtrenderer_tpu_torch.ops import geometry
 from dtrenderer_tpu_torch.ops.pipeline import DrawBatch, corner_attrs_with_q
 from dtrenderer_tpu_torch.ops.render_fused import (
-    CORNER_STRIDE, make_texture_lut, pack_flags,
+    CORNER_STRIDE, PAYLOAD_CHANNELS, make_texture_lut, pack_flags,
 )
 from dtrenderer_tpu_torch.ops.shading import (
     SHADING_FLAT, SHADING_GOURAUD, SHADING_NONE, SHADING_PHONG, Light,
@@ -47,6 +59,25 @@ from dtrenderer_tpu_torch.utils.math3d import cross
 F32 = torch.float32
 # the order in which the mode groups are concatenated before `perm`
 MODES = (SHADING_FLAT, SHADING_GOURAUD, SHADING_PHONG, SHADING_NONE)
+# the kernel's code of each mode (csrc/vertex_pass.cu kFlat, ...)
+MODE_CODES = {mode: i for i, mode in enumerate(MODES)}
+
+# The per-draw table, i64 [n_draws, TABLE_COLS] (csrc/vertex_pass.cu kCols):
+# the draw's first triangle in the run and its triangles, its mode code,
+# 1 if its faces are i32 (else i64), the addresses of its verts, uv,
+# normals and faces, their (row, column) element strides in that order, its
+# vertices, and the offsets in the frame vector of its model matrix, its
+# normal matrix and its colour. Columns TABLE_MESH are what its mesh gives.
+(TABLE_FIRST, TABLE_TRIS, TABLE_MODE, TABLE_FACES_I32, TABLE_PTRS,
+ TABLE_STRIDES, TABLE_NVERTS, TABLE_MODEL, TABLE_NORMAL,
+ TABLE_COLOR) = (0, 1, 2, 3, 4, 8, 16, 17, 18, 19)
+TABLE_COLS = 20
+TABLE_MESH = slice(TABLE_FACES_I32, TABLE_NVERTS + 1)
+MESH_WIDTHS = (("verts", 3), ("uv", 2), ("normals", 3), ("faces", 3))
+
+# Kernel launches made by run_pass (CUDA plans only; a launch that a CUDA
+# graph captures is not one: its replays are vertex_graph.REPLAYS).
+KERNEL_LAUNCHES = 0
 
 
 class Group(NamedTuple):
@@ -81,6 +112,14 @@ class RunPlan(NamedTuple):
     head: torch.Tensor         # [T', 4] payload heads, or [1, 4] broadcast
     white: torch.Tensor        # the texture of an untextured draw, [1, 1, 4]
     step_and_hi: torch.Tensor  # geometry.bbox_steps
+    rows: tuple                # the per-draw table (TABLE_*), on the host
+    table: torch.Tensor        # the same, i64 [n_draws, TABLE_COLS]
+    heads: torch.Tensor        # each draw's payload head, f32 [n_draws, 4]
+
+    @property
+    def n_tris(self) -> int:
+        """Source triangles (one thread each in the kernel)."""
+        return self.n_rows // (2 if self.near_clip else 1)
 
     @property
     def n_mats(self) -> int:
@@ -149,19 +188,21 @@ def plan_run(draws, sampling_mode: str, frame_w: int, frame_h: int,
         ).to(device)
 
     normals = [i for i, d in enumerate(draws) if d.normal_mat is not None]
+    normal_rows = list(range(1, 1 + n))
+    for k, i in enumerate(normals):
+        normal_rows[i] = 1 + n + k
     normal_row = None
     if normals:
-        rows = list(range(1, 1 + n))
-        for k, i in enumerate(normals):
-            rows[i] = 1 + n + k
-        normal_row = torch.tensor(rows, device=device)
+        normal_row = torch.tensor(normal_rows, device=device)
 
     host = tuple(i for i, d in enumerate(draws)
                  if not color_on(d.color, device))
+    color_rows = list(range(n))
     color_row = None
     if 0 < len(host) < n:
         block = [i for i in range(n) if i not in host] + list(host)
-        color_row = torch.tensor(np.argsort(block), device=device)
+        color_rows = np.argsort(block).tolist()
+        color_row = torch.tensor(color_rows, device=device)
 
     white = torch.ones((1, 1, 4), dtype=F32, device=device)
     _, meta = make_texture_lut(_textures(draws, white))
@@ -173,6 +214,14 @@ def plan_run(draws, sampling_mode: str, frame_w: int, frame_h: int,
         head = head.repeat_interleave(
             torch.tensor([per_tri * t for t in n_tris]), dim=0)
 
+    n_mats = 1 + n + len(normals) + (n if mvps_given else 0)
+    colors_at = 16 * n_mats + 4  # the light's 4 values, then the colours
+    first = np.cumsum([0] + n_tris[:-1]).tolist()
+    rows = tuple(
+        (first[i], n_tris[i], MODE_CODES[d.shading], *mesh_columns(d.mesh),
+         16 * (1 + i), 16 * normal_rows[i], colors_at + 4 * color_rows[i])
+        for i, d in enumerate(draws))
+
     return RunPlan(
         device=device, n_draws=n, n_rows=per_tri * sum(n_tris),
         frame_w=int(frame_w), frame_h=int(frame_h),
@@ -180,7 +229,44 @@ def plan_run(draws, sampling_mode: str, frame_w: int, frame_h: int,
         groups=tuple(groups), perm=perm, n_normals=len(normals),
         normal_row=normal_row, mvps_given=mvps_given, host_colors=host,
         color_row=color_row, head=head.to(device), white=white,
-        step_and_hi=geometry.bbox_steps(frame_w, frame_h, device))
+        step_and_hi=geometry.bbox_steps(frame_w, frame_h, device), rows=rows,
+        table=torch.tensor(rows, dtype=torch.int64).reshape(
+            n, TABLE_COLS).to(device),
+        heads=torch.tensor(heads, dtype=F32).reshape(n, 4).to(device))
+
+
+def mesh_columns(mesh) -> tuple:
+    """A mesh's columns of the per-draw table (TABLE_MESH): 1 if its faces
+    are i32, the addresses of verts, uv, normals and faces, their (row,
+    column) strides, its vertices."""
+    ts = [getattr(mesh, name) for name, _ in MESH_WIDTHS]
+    strides = [(tuple(t.stride()) + (0, 0))[:2] for t in ts]
+    return (int(mesh.faces.dtype == torch.int32),
+            *(t.data_ptr() for t in ts), *(s for st in strides for s in st),
+            int(mesh.verts.shape[0]))
+
+
+def check_draws(plan: RunPlan, draws):
+    """Raise unless the draws are what the kernel reads: as many as the
+    plan's, on its device, each mesh of f32 verts [N, 3], uv [N, 2] and
+    normals [N, 3], and i64 or i32 faces [T, 3], at any strides."""
+    if len(draws) != plan.n_draws:
+        raise ValueError(f"{len(draws)} draws for a plan of {plan.n_draws}")
+    for i, d in enumerate(draws):
+        n_verts = d.mesh.verts.shape[0]
+        for name, width in MESH_WIDTHS:
+            t = getattr(d.mesh, name)
+            is_faces = name == "faces"
+            kinds = (torch.int64, torch.int32) if is_faces else (F32,)
+            if t.dtype not in kinds or t.dim() != 2 or t.shape[1] != width \
+                    or (not is_faces and t.shape[0] != n_verts):
+                raise ValueError(
+                    f"draw {i}: mesh.{name} must be "
+                    f"{'i64 or i32 [T' if is_faces else f'f32 [{n_verts}'}, "
+                    f"{width}], got {t.dtype} {tuple(t.shape)}")
+            if t.device != plan.device:
+                raise ValueError(f"draw {i}: mesh.{name} is on {t.device}, "
+                                 f"the plan on {plan.device}")
 
 
 def _textures(draws, white):
@@ -287,9 +373,58 @@ def _group_corners(g: Group, meshes, mvps, models, normal_mats, colors,
     return gathered[..., 0:4], raw
 
 
+def _mvps(plan: RunPlan, mats):
+    """Each draw's mvp, [n_draws, 4, 4]: the ones given, else
+    view_proj @ model."""
+    n = plan.n_draws
+    if plan.mvps_given:
+        return mats[1 + n + plan.n_normals:]
+    return _mat4mul_rows(mats[0], mats[1:1 + n])
+
+
 def run_pass(plan: RunPlan, vec, draws) -> DrawBatch:
     """The vertex stage and packing of the run: DrawBatch of its T' setup
-    rows, from the frame vector `vec` and the draws' meshes and textures."""
+    rows, from the frame vector `vec` and the draws' meshes and textures.
+    One launch of csrc/vertex_pass.cu on a CUDA plan, run_pass_plain on a
+    CPU plan."""
+    global KERNEL_LAUNCHES
+    if plan.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(
+            f"run_pass runs on CUDA (kernel) or CPU (plain twin), not "
+            f"{plan.device.type}")
+    check_draws(plan, draws)
+    if plan.device.type == "cpu":
+        return run_pass_plain(plan, vec, draws)
+    if tuple(r[TABLE_MESH] for r in plan.rows) != tuple(
+            mesh_columns(d.mesh) for d in draws):
+        raise ValueError("the draws' meshes are not where the plan's table "
+                         "says (plan_run them again)")
+    if vec.dtype != F32 or vec.device != plan.device or \
+            vec.shape != (plan.n_inputs,) or not vec.is_contiguous():
+        raise ValueError(f"vec must be a contiguous f32 [{plan.n_inputs}] on "
+                         f"{plan.device}, got {vec.dtype} {tuple(vec.shape)}")
+    from dtrenderer_tpu_torch.kernels import vertex_pass as kv
+
+    dev, rows = plan.device, plan.n_rows
+    mvps = _mvps(plan, vec[:16 * plan.n_mats].view(plan.n_mats, 4, 4))
+    coef = torch.empty((rows, geometry.SETUP_CHANNELS), dtype=F32,
+                       device=dev)
+    bbox = torch.empty((rows, 4), dtype=torch.int32, device=dev)
+    valid = torch.empty(rows, dtype=torch.bool, device=dev)
+    payload = torch.empty((rows, PAYLOAD_CHANNELS), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        kv.launch(plan.table, plan.heads, vec, mvps.contiguous(), coef, bbox,
+                  valid, payload, plan.n_tris, plan.light_at, plan.frame_w,
+                  plan.frame_h, plan.cull_backfaces, plan.near_clip)
+        if rows and not torch.cuda.is_current_stream_capturing():
+            KERNEL_LAUNCHES += 1
+    lut, _ = make_texture_lut(_textures(draws, plan.white))
+    return DrawBatch(coef, bbox, valid, payload, lut)
+
+
+def run_pass_plain(plan: RunPlan, vec, draws) -> DrawBatch:
+    """run_pass in plain torch: the element-wise pass over the mode groups
+    (the CPU path, and the twin the kernel is held to on the card)."""
     n = plan.n_draws
     mats = vec[:16 * plan.n_mats].view(plan.n_mats, 4, 4)
     view_proj, models = mats[0], mats[1:1 + n]

@@ -342,6 +342,7 @@ def test_port_imports_no_jax():
         "import dtrenderer_tpu_torch.kernels.render_fused\n"
         "import dtrenderer_tpu_torch.kernels.raster_visibility\n"
         "import dtrenderer_tpu_torch.kernels.render_ordered\n"
+        "import dtrenderer_tpu_torch.kernels.vertex_pass\n"
         "import dtrenderer_tpu_torch.assets.native\n"
         "import dtrenderer_tpu_torch.assets.obj, dtrenderer_tpu_torch.assets.image\n"
         "import dtrenderer_tpu_torch.models.scenes\n"
