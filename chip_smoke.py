@@ -9,10 +9,11 @@
 Run from the root of a checkout. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile the four kernels (csrc/render_fused.cu = K1,
+  2. build: compile the five kernel sources (csrc/render_fused.cu = K1,
      csrc/raster_visibility.cu = K2, csrc/render_ordered.cu = K3,
-     csrc/vertex_pass.cu = VP, the vertex stage), one nvcc per source, all
-     started together; seconds, registers and spills;
+     csrc/vertex_pass.cu = VP, the vertex stage, csrc/binning.cu = BN, the
+     binning), one nvcc per source, all started together; seconds,
+     registers and spills;
   3. kernel vs plain twin at the main paths' shapes, both timed with CUDA
      events (plain, kernel, kernel, plain):
        K1 at config 4 (1920x1080) and config 5 (3840x2160, 1,000,000
@@ -38,7 +39,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      launch count set to 0 just before and read just after (VP: at least
      once per pack_draws call on "fused" and "tile", counted by
      vertex_batch.run_pass and by every replay of a graph that captured it;
-     never on "pallas"):
+     never on "pallas"; BN: once per binning.bin_triangles call, i.e. per
+     K1, K2 or K3 launch that bins for itself, once per shared table, never
+     for the distributed exchange):
        config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
          frames: one K1 launch per frame;
        config 5 on backend "pallas", 2 frames: one K2 launch per frame;
@@ -112,6 +115,16 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      then steady device time: each bench cell (bench_torch/cells.py) after
      three frames, 5 frames of replays only traced with the bench's own
      profiler window: device busy ms a frame and busy share;
+     binning kernel vs plain twin: binning.bin_triangles (BN) against
+     bin_triangles_plain at every main path's inputs (config 5, config 5 in
+     8 bands over the shared table, the soup, the fill scene, config 4, the
+     translucent sphere, the API frame's render_meshes run), the stress
+     shapes in their windows and the edge cases: tile_start, tri_ids and
+     overflow bit for bit; pairs and tiles per scene; the main paths'
+     inputs timed (a loop of 200 device passes without the host read, the
+     call against the plain path: plain, kernel, kernel, plain) against the
+     bound by bytes, with the host synchronisations a call counted under
+     torch.cuda.set_sync_debug_mode("warn"): 1 (the plain path's beside it);
   7. stage breakdown of one frame per path (vertex stage + packing,
      binning, kernel, merge or deferred shading), after the counted windows;
      and the API frame's verbs one by one (best of three);
@@ -606,10 +619,11 @@ def stress_vs_plain():
 
 
 def reset_counts():
-    from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
-    from dtrenderer_tpu_torch.ops import render_fused, vertex_batch
-    from dtrenderer_tpu_torch.ops import vertex_graph
+    from dtrenderer_tpu_torch.ops import binning, raster_ordered
+    from dtrenderer_tpu_torch.ops import raster_pallas, render_fused
+    from dtrenderer_tpu_torch.ops import vertex_batch, vertex_graph
 
+    binning.KERNEL_LAUNCHES = 0
     render_fused.KERNEL_LAUNCHES = 0
     raster_pallas.KERNEL_LAUNCHES = 0
     raster_ordered.KERNEL_LAUNCHES = 0
@@ -620,24 +634,26 @@ def reset_counts():
 def read_counts() -> dict:
     """Launches of each kernel since reset_counts; "VP", the vertex kernel,
     is launched by vertex_batch.run_pass and by every replay of a graph
-    that captured it (vertex_graph.REPLAYS)."""
-    from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
-    from dtrenderer_tpu_torch.ops import render_fused, vertex_batch
-    from dtrenderer_tpu_torch.ops import vertex_graph
+    that captured it (vertex_graph.REPLAYS); "BN", the binning kernels, by
+    binning.bin_triangles."""
+    from dtrenderer_tpu_torch.ops import binning, raster_ordered
+    from dtrenderer_tpu_torch.ops import raster_pallas, render_fused
+    from dtrenderer_tpu_torch.ops import vertex_batch, vertex_graph
 
     return {"K1": render_fused.KERNEL_LAUNCHES,
             "K2": raster_pallas.KERNEL_LAUNCHES,
             "K3": raster_ordered.KERNEL_LAUNCHES,
-            "VP": vertex_batch.KERNEL_LAUNCHES + vertex_graph.REPLAYS}
+            "VP": vertex_batch.KERNEL_LAUNCHES + vertex_graph.REPLAYS,
+            "BN": binning.KERNEL_LAUNCHES}
 
 
 def launches_ok(got: dict, want: dict) -> bool:
-    """K1, K2 and K3 launched exactly as `want` says; the vertex kernel at
+    """K1, K2, K3 and BN launched exactly as `want` says; the vertex kernel at
     least want["VP"] times (once per pack_draws call: a capture's first
     call launches it twice, warm-up and replay), or never when that is 0
     (the "pallas" and "ref" routes stage with prepare_draw)."""
     vp_ok = got["VP"] >= want["VP"] if want["VP"] else got["VP"] == 0
-    return vp_ok and all(got[k] == want[k] for k in ("K1", "K2", "K3"))
+    return vp_ok and all(got[k] == want[k] for k in ("K1", "K2", "K3", "BN"))
 
 
 def frames(scene, n: int, card, tag: str):
@@ -745,7 +761,7 @@ def api_frame_path(card) -> dict:
     state, n, _ = platform.run_app(update, api.new_state(w, h, device=dev), 3,
                                    script)
     got = read_counts()
-    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6}
+    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6, "BN": 6}
     if not launches_ok(got, want) or n != 3:
         raise AssertionError(f"API frame: kernel launches {got}, want {want}")
     if torch.equal(images[0], images[2]):
@@ -776,7 +792,7 @@ def api_frame_path(card) -> dict:
         api.new_state(w, h, device=dev), 0.6, frame.cube, frame.ball,
         frame.tex, frame.grad, "pallas"))
     got2 = read_counts()
-    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 0}
+    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 0, "BN": 3}
     if not launches_ok(got2, want2):
         raise AssertionError(f"demo frame on pallas: kernel launches {got2}, "
                              f"want {want2}")
@@ -1024,7 +1040,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     from dtrenderer_tpu_torch.utils.benchlib import device_time
 
     dev = torch.device(DEVICE)
-    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0}
+    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0}
     rows = 8
     mesh8 = shard.make_mesh(frames=1, rows=rows)
     mesh42 = shard.make_mesh(frames=1, rows=4, cols=2)
@@ -1047,7 +1063,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     single = {}
     for backend, key in (("fused", "K1"), ("pallas", "K2")):
         want = {"K1": 0, "K2": 0, "K3": 0, key: 2,
-                "VP": 2 if backend == "fused" else 0}
+                "VP": 2 if backend == "fused" else 0, "BN": 2}
         single[backend], times = counted(
             f"config 5 {backend} single launch", want, total,
             lambda: timed_frames(lambda: pipeline.draw_mesh(
@@ -1062,10 +1078,15 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
                                       raster_opts=opts, **kw)
         return shard.gather_fb(out, dev)
 
+    # binning.bin_triangles calls a frame: one per band, one table per
+    # distinct card of the mesh, none for the exchange
+    tables = {"per band": rows, "shared": len(mesh8.distinct()),
+              "distributed": 0}
     for way, opts in ways:
         got, times = counted(
             f"config 5 fused, {rows} bands, {way}",
-            {"K1": 2 * rows, "K2": 0, "K3": 0, "VP": 2}, total,
+            {"K1": 2 * rows, "K2": 0, "K3": 0, "VP": 2,
+             "BN": 2 * tables[way]}, total,
             lambda: timed_frames(lambda: sharded5("fused", opts), 2))
         bits_equal(f"config 5 fused, {rows} bands, {way}", got,
                    single["fused"])
@@ -1078,7 +1099,9 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
                                                    band_shared=False))]:
         got, times = counted(
             f"config 5 draw_mesh row_bands, {way}",
-            {"K1": rows, "K2": 0, "K3": 0, "VP": 1}, total,
+            {"K1": rows, "K2": 0, "K3": 0, "VP": 1,
+             "BN": {"shared": 1, "distributed": 0, "per band": rows}[way]},
+            total,
             lambda: timed_frames(lambda: pipeline.draw_mesh(
                 fb5, d.mesh, d.model, sub.view_proj, backend="fused",
                 raster_opts=opts, **kw), 1))
@@ -1093,15 +1116,16 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     iters = 5
     per_call = counted(
         "config 5 row_bands shared, device_time",
-        {"K1": rows * (iters + 1), "K2": 0, "K3": 0, "VP": iters + 1},
-        total,
+        {"K1": rows * (iters + 1), "K2": 0, "K3": 0, "VP": iters + 1,
+         "BN": iters + 1}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused",
             raster_opts=ways[1][1], **kw), device=fb5.depth.device,
             iters=iters, warmup_iters=1))
     whole_call = counted(
         "config 5 single launch, device_time",
-        {"K1": iters + 1, "K2": 0, "K3": 0, "VP": iters + 1}, total,
+        {"K1": iters + 1, "K2": 0, "K3": 0, "VP": iters + 1,
+         "BN": iters + 1}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused", **kw),
             device=fb5.depth.device, iters=iters, warmup_iters=1))
@@ -1112,7 +1136,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
 
     got, times = counted(
         f"config 5 pallas, {rows} bands",
-        {"K1": 0, "K2": 2 * rows, "K3": 0, "VP": 0}, total, lambda: timed_frames(lambda: sharded5("pallas", None), 2))
+        {"K1": 0, "K2": 2 * rows, "K3": 0, "VP": 0, "BN": 2 * rows}, total,
+        lambda: timed_frames(lambda: sharded5("pallas", None), 2))
     bits_equal(f"config 5 pallas, {rows} bands", got, single["pallas"])
     print(f"band paths: config 5 pallas, {rows} bands, per band binning: z "
           f"and colour bit-equal to the single launch, K2 {rows} launches a "
@@ -1181,8 +1206,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     want4 = fblib.Framebuffer(*cfg4.frame(fb4.color, fb4.depth, 0.5))
     cut4 = shard.create_sharded_fb(h4, w4, mesh42, batch=1)
     got, times = counted(
-        "config 4, 4 x 2 tiles", {"K1": 2 * 8, "K2": 0, "K3": 0, "VP": 2},
-        total,
+        "config 4, 4 x 2 tiles",
+        {"K1": 2 * 8, "K2": 0, "K3": 0, "VP": 2, "BN": 2 * 8}, total,
         lambda: timed_frames(lambda: shard.gather_fb(
             shard.render_frames_sharded(band_fn, cut4, mesh42, t4), dev),
             2))
@@ -1200,12 +1225,13 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     fbs = fblib.clear(fblib.create(hs, ws, dev), [0.02, 0.02, 0.05, 1.0])
     cuts = shard.shard_fb(fbs, mesh8)
     want_s, t_one = counted(
-        "sphere single launch", {"K1": 0, "K2": 0, "K3": 2, "VP": 2}, total,
+        "sphere single launch",
+        {"K1": 0, "K2": 0, "K3": 2, "VP": 2, "BN": 2}, total,
         lambda: timed_frames(lambda: pipeline.draw_mesh_ordered(
             fbs, ds.mesh, ds.model, subs.view_proj, **kws), 2))
     got, times = counted(
         f"sphere, {rows} bands",
-        {"K1": 0, "K2": 0, "K3": 2 * rows, "VP": 2}, total,
+        {"K1": 0, "K2": 0, "K3": 2 * rows, "VP": 2, "BN": 2 * rows}, total,
         lambda: timed_frames(lambda: shard.gather_fb(
             shard.draw_mesh_ordered_sharded(
                 cuts, ds.mesh, ds.model, subs.view_proj, mesh8, **kws), dev),
@@ -1398,6 +1424,159 @@ def vertex_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
               f"loop / bound {min(loop) / b[0]:.2f} [{card}]")
         out[tag] = (0.0, k_ms, p_ms, b, loop)
     print(f"vertex kernel vs plain: {len(runs)} runs bit-equal, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------------------------- binning kernel vs twin
+
+
+def host_syncs(fn) -> int:
+    """Host synchronisations fn() makes, counted under torch's sync debug
+    mode (one warning per synchronising call)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def same_bins(tag, got, want):
+    """Two Bins bit-equal: tile_start, tri_ids, overflow."""
+    import torch
+
+    for name in ("tile_start", "tri_ids", "overflow"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs from the plain "
+                                 f"path")
+
+
+def binning_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
+    """csrc/binning.cu (binning.bin_triangles on the card) against
+    bin_triangles_plain on the same inputs, tile_start, tri_ids and overflow
+    bit for bit: every main path's inputs (config 5, config 5 in 8 bands
+    over the shared table, the soup, the fill scene, config 4, the
+    translucent sphere, the API frame's render_meshes run), the stress
+    shapes in their windows and every edge case. The main paths' inputs are
+    timed: a loop of 200 device passes of the kernels on preallocated
+    tensors (the pair count known: no host read), bin_triangles against
+    bin_triangles_plain (plain, kernel, kernel, plain; each call with its
+    read), the bound by bytes (bbox and valid in, tile_start and tri_ids
+    out) and the host synchronisations a call. Returns per scene (0, call
+    ms, plain ms, bound, syncs, plain syncs, pairs, loop readings)."""
+    import torch
+
+    from bench_torch import scenes as bench_scenes
+    from dtrenderer_tpu_torch.kernels import binning as kb
+    from dtrenderer_tpu_torch.models import edge_cases as ec, stress
+    from dtrenderer_tpu_torch.ops import binning, pipeline
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.ops.shading import make_light
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    runs = []  # (tag, coef, bbox, valid, height, width, y0, x0, bands, timed)
+    for name, spec, bands in (
+            ("config5_4k_1m", cfg5, 1), ("config5_4k_bands8_shared", cfg5, 8),
+            ("soup_200k_1080p", bench_scenes.soup_scene(device=dev), 1),
+            ("fill_six_spheres_1080p", bench_scenes.fill_scene(device=dev),
+             1),
+            ("config4_1080p", cfg4, 1), ("ordered_sphere_1080p", sphere, 1),
+            ("api_frame_1080p", None, 1)):
+        w, h = (1920, 1080) if spec is None else (spec.width, spec.height)
+        sub = (api_submission_fn(dev) if spec is None else spec.submission)(
+            0.5)
+        batch = pipeline.pack_draws(sub.draws, sub.view_proj, sub.light,
+                                    sub.sampling_mode, w, h,
+                                    near_clip=sub.near_clip)
+        runs.append((name, batch.coef, batch.bbox, batch.valid, h, w, 0, 0,
+                     bands, True))
+    for sname, make in stress.CASES.items():
+        corners, h, w = make()
+        setup = stress.setup(corners, h, w, dev)
+        for y0, x0, bh, bw in stress.windows(h, w):
+            runs.append((f"stress {sname} {bh}x{bw} at ({y0}, {x0})",
+                         setup.coef, setup.bbox, setup.valid, bh, bw, y0, x0,
+                         1, False))
+    for make in ec.CASES.values():
+        c = make()
+        batch = pipeline.pack_draws(
+            ec.draw_specs(c, dev), torch.from_numpy(c.view_proj).to(dev),
+            make_light(*ec.LIGHT, device=dev), "nearest", c.width,
+            c.height, c.cull_backfaces, c.near_clip)
+        runs.append((f"edge case {c.name!r}", batch.coef, batch.bbox,
+                     batch.valid, c.height, c.width, 0, 0, 1, False))
+
+    out = {}
+    for tag, coef, bbox, valid, h, w, y0, x0, bands, timed in runs:
+        args = (coef, bbox, valid, h, w, y0, x0, rf.TILE_H, rf.TILE_W, bands)
+        got = binning.bin_triangles(*args)
+        want = binning.bin_triangles_plain(*args)
+        torch.cuda.synchronize()
+        same_bins(f"binning kernel {tag}", got, want)
+        n_pairs, n_tiles = got.tri_ids.shape[0], got.tile_start.shape[0] - 1
+        counts = got.tile_start[1:] - got.tile_start[:-1]
+        line = (f"binning kernel vs plain, {tag} {w}x{h}"
+                f"{f' in {bands} bands' if bands > 1 else ''}: "
+                f"{coef.shape[0]} triangles, {int(valid.sum())} valid, "
+                f"{n_pairs} pairs over {n_tiles} tiles (deepest "
+                f"{int(counts.max()) if n_tiles else 0}): bit-equal")
+        if not timed:
+            print(line)
+            continue
+        # the device passes alone, on preallocated tensors, P known
+        grid = (h, w, y0, x0, rf.TILE_H, rf.TILE_W, bands)
+        n_cover = torch.empty(coef.shape[0], dtype=torch.int64, device=dev)
+        tally = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+        tile_of, tri_of, keys_out, tri_ids = (
+            torch.empty(n_pairs, dtype=torch.int32, device=dev)
+            for _ in range(4))
+        end_bit = max(1, (n_tiles - 1).bit_length())
+        loop_out = {}
+
+        def passes():
+            tally.zero_()
+            kb.cover(bbox, valid, grid, n_cover)
+            ends = torch.cumsum(n_cover, 0)
+            kb.pairs(bbox, valid, ends, grid, tile_of, tri_of, tally)
+            loop_out["tile_start"] = torch.cumsum(tally, 0,
+                                                  dtype=torch.int32)
+            kb.sort_pairs(tile_of, tri_of, keys_out, tri_ids, end_bit)
+
+        loop = launch_loop_ms(passes)
+        torch.cuda.synchronize()
+        if not (torch.equal(loop_out["tile_start"], got.tile_start)
+                and torch.equal(tri_ids, got.tri_ids)):
+            raise AssertionError(f"binning kernel {tag}: the launch loop's "
+                                 f"Bins differ from the call's")
+        k_ms, p_ms, r = interleaved_ms(lambda: binning.bin_triangles(*args),
+                                       lambda: binning.bin_triangles_plain(
+                                           *args), 20)
+        syncs = host_syncs(lambda: binning.bin_triangles(*args))
+        plain_syncs = host_syncs(lambda: binning.bin_triangles_plain(*args))
+        if syncs != 1:
+            raise AssertionError(f"binning kernel {tag}: {syncs} host "
+                                 f"synchronisations a call, want 1")
+        n_bytes = nbytes(bbox, valid, got.tile_start, got.tri_ids)
+        b = bound(n_bytes, 0)
+        print(f"{line}; device passes, loop of 200 {loop[0]:.4f}, "
+              f"{loop[1]:.4f} ms, bin_triangles {k_ms:.4f} ms ({r[1]:.4f}, "
+              f"{r[2]:.4f}), plain {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
+              f"bound {b[0]:.4f} ms by {b[1]} ({n_bytes} bytes), loop / "
+              f"bound {min(loop) / b[0]:.1f}, host synchronisations a call "
+              f"{syncs} (plain {plain_syncs}) [{card}]")
+        out[tag] = (0.0, k_ms, p_ms, b, syncs, plain_syncs, n_pairs, loop)
+    print(f"binning kernel vs plain: {len(runs)} runs bit-equal, "
           f"{time.perf_counter() - t0:.1f} s")
     return out
 
@@ -1897,7 +2076,7 @@ def edge_cases_check() -> dict:
     got = read_counts()
     n_draws = sum(len(c.draws) for c in cases)
     want = {"K1": len(cases), "K2": n_draws, "K3": n_draws,
-            "VP": len(cases) + n_draws}
+            "VP": len(cases) + n_draws, "BN": len(cases) + 2 * n_draws}
     if not launches_ok(got, want):
         raise AssertionError(f"edge cases: kernel launches {got}, want {want}")
     for case in cases:
@@ -2025,10 +2204,12 @@ def draw2d_text_check():
 
 def build_all():
     """One nvcc per kernel source, all started together."""
-    from dtrenderer_tpu_torch.kernels import raster_visibility, render_fused
-    from dtrenderer_tpu_torch.kernels import render_ordered, vertex_pass
+    from dtrenderer_tpu_torch.kernels import binning, raster_visibility
+    from dtrenderer_tpu_torch.kernels import render_fused, render_ordered
+    from dtrenderer_tpu_torch.kernels import vertex_pass
 
-    mods = (render_fused, raster_visibility, render_ordered, vertex_pass)
+    mods = (render_fused, raster_visibility, render_ordered, vertex_pass,
+            binning)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         infos = list(ex.map(lambda m: m.library()[1], mods))
@@ -2065,7 +2246,7 @@ def main(argv=None) -> int:
     from dtrenderer_tpu_torch.ops import render_fused as rf
     from dtrenderer_tpu_torch.ops import vertex_batch
 
-    *raster, vp = build_all()
+    *raster, vp, _ = build_all()
     for m in raster:
         if m.tile_shape() != (rf.TILE_H, rf.TILE_W):
             raise AssertionError(f"{m.SOURCE} tile {m.tile_shape()} != "
@@ -2100,16 +2281,18 @@ def main(argv=None) -> int:
     k3 = k3_vs_plain(sphere, card)
     stress_vs_plain()
 
-    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0}
     paths = [
         ("K1 path", [(cfg4, 3), (cfg5, 2)],
-         {"K1": 5, "K2": 0, "K3": 0, "VP": 5}),
+         {"K1": 5, "K2": 0, "K3": 0, "VP": 5, "BN": 5}),
         ("K2 path config 5", [(cfg5p, 2)],
-         {"K1": 0, "K2": 2, "K3": 0, "VP": 0}),
+         {"K1": 0, "K2": 2, "K3": 0, "VP": 0, "BN": 2}),
         ("K2 path config 4", [(cfg4p, 2)],
-         {"K1": 0, "K2": 8, "K3": 0, "VP": 0}),
-        ("K3 path", [(sphere, 3)], {"K1": 0, "K2": 0, "K3": 3, "VP": 3}),
-        ("mixed path", [(mixed, 2)], {"K1": 4, "K2": 0, "K3": 2, "VP": 6}),
+         {"K1": 0, "K2": 8, "K3": 0, "VP": 0, "BN": 8}),
+        ("K3 path", [(sphere, 3)],
+         {"K1": 0, "K2": 0, "K3": 3, "VP": 3, "BN": 3}),
+        ("mixed path", [(mixed, 2)],
+         {"K1": 4, "K2": 0, "K3": 2, "VP": 6, "BN": 6}),
     ]
     for tag, runs, want in paths:
         for k, n in main_path(tag, runs, want, card).items():
@@ -2123,6 +2306,7 @@ def main(argv=None) -> int:
     band_graph_check(card, cfg5)
     many_keys_frame(card)
     steady_device_frames(card)
+    bn = binning_kernel_vs_plain(card, cfg4, cfg5, sphere)
 
     stages_fused(cfg4, card)
     stages_fused(cfg5, card)
@@ -2168,6 +2352,17 @@ def main(argv=None) -> int:
                   if name != "config5_4k_1m"
                   for k, v in (("ms", res[1]), ("plain_ms", res[2]),
                                ("bound_ms", res[3][0]),
+                               ("launch_loop_ms", list(res[-1])))}),
+        entry("binning", "binning.cu",
+              "dtrenderer_tpu/ops/binning.py:859 bin_triangles (XLA ops: no "
+              "pl.pallas_call)", "BN", bn["config5_4k_1m"],
+              host_syncs=bn["config5_4k_1m"][4],
+              plain_host_syncs=bn["config5_4k_1m"][5],
+              pairs=bn["config5_4k_1m"][6], **{
+                  f"{k}_{name}": v for name, res in bn.items()
+                  if name != "config5_4k_1m"
+                  for k, v in (("ms", res[1]), ("plain_ms", res[2]),
+                               ("bound_ms", res[3][0]), ("pairs", res[6]),
                                ("launch_loop_ms", list(res[-1])))}),
     ]}
     print(json.dumps(report))

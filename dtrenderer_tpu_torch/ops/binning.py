@@ -1,12 +1,22 @@
-"""Triangle -> framebuffer-tile binning into CSR lists (plain torch).
+"""Triangle -> framebuffer-tile binning into CSR lists.
 
 Port of the semantics of `dtrenderer_tpu/ops/binning.py`, without its TPU
 machinery: every in-frame triangle emits one (tile, triangle) pair per tile
-of its bbox's tile span, pairs are sorted on one int64 key `tile * T + id`,
-and per-tile starts come from a bincount + cumsum. Each tile's ids come out
-ascending. Nothing is dropped, so there is no capacity, small/broad split or
-pair budget (the int64 key has no 2^31 cap), and `overflow` is always zero;
-it stays in the API so FrameCounters keeps its shape.
+of its bbox's tile span, and each tile's ids come out ascending. Nothing is
+dropped, so there is no capacity, small/broad split or pair budget, and
+`overflow` is always zero; it stays in the API so FrameCounters keeps its
+shape.
+
+Which path runs where: on a CUDA tensor `bin_triangles` launches the
+hand-written kernels of `csrc/binning.cu` (`bin_on_card`: a count of each
+triangle's tiles, device scans, one thread per pair, a stable radix sort of
+the pairs on the tile's bits; one value, the pair count, is read back to
+the host) and counts the call in `KERNEL_LAUNCHES`; on a CPU tensor it runs
+`bin_triangles_plain`, the same function in plain torch (pairs sorted on one
+int64 key `tile * T + id`, per-tile starts from a bincount + cumsum) and the
+kernels' twin. There is no fallback between the two: any other device
+raises. `bin_triangles_distributed`, `window_ids` and the audits stay plain
+torch on every device.
 
 A frame cut into N row bands can be binned three ways, all with the same
 per-tile id sets:
@@ -30,6 +40,9 @@ import torch
 
 I32 = torch.int32
 I64 = torch.int64
+
+# Calls of bin_triangles that launched csrc/binning.cu (CUDA tensors only).
+KERNEL_LAUNCHES = 0
 
 
 class Bins(NamedTuple):
@@ -96,7 +109,9 @@ def _emit_pairs(bbox, valid, height: int, width: int, y_offset: int,
 
 
 def _csr(key, n_tris: int, n_tiles: int, tile_h: int, tile_w: int) -> Bins:
-    """Bins of sorted keys `tile * n_tris + id` over tiles 0..n_tiles-1."""
+    """Bins of sorted keys `tile * n_tris + id` over tiles 0..n_tiles-1
+    (plain torch: the bincount reads the keys' max to the host on a CUDA
+    tensor; the card's bin_triangles builds tile_start without it)."""
     device = key.device
     tile_sorted = key // n_tris
     counts = torch.bincount(tile_sorted, minlength=n_tiles)
@@ -111,6 +126,12 @@ def _csr(key, n_tris: int, n_tiles: int, tile_h: int, tile_w: int) -> Bins:
     )
 
 
+def _n_tiles(height: int, width: int, tile_h: int, tile_w: int,
+             row_bands: int) -> int:
+    return (row_bands * _ceil_div(height // row_bands, tile_h)
+            * _ceil_div(width, tile_w))
+
+
 def bin_triangles(coef, bbox, valid, height: int, width: int,
                   y_offset: int = 0, x_offset: int = 0,
                   tile_h: int = 16, tile_w: int = 16,
@@ -121,14 +142,96 @@ def bin_triangles(coef, bbox, valid, height: int, width: int,
 
     row_bands > 1 bins over the banded grid of the shard's N row bands
     (band_h = height // N, ceil(band_h / tile_h) tile rows per band, band
-    after band): the shared table whose windows `band_bins` cuts."""
+    after band): the shared table whose windows `band_bins` cuts.
+
+    On a CUDA tensor: csrc/binning.cu (`bin_on_card`, one host read); on a
+    CPU tensor: `bin_triangles_plain`. The same Bins bit for bit for every
+    bbox that triangle setup makes (x0 <= x1 and y0 <= y1 on valid rows;
+    the card bins an inverted one as empty)."""
+    global KERNEL_LAUNCHES
+    if bbox.device.type == "cpu":
+        return bin_triangles_plain(coef, bbox, valid, height, width,
+                                   y_offset, x_offset, tile_h, tile_w,
+                                   row_bands)
+    if bbox.device.type != "cuda":
+        raise NotImplementedError(
+            f"bin_triangles runs on CUDA (kernel) or CPU (plain twin), not "
+            f"{bbox.device.type}")
+    T = bbox.shape[0]
+    if coef.shape[0] != T or coef.device != bbox.device:
+        raise ValueError(f"coef ({coef.shape[0]} rows on {coef.device}) and "
+                         f"bbox ({T} rows on {bbox.device}) must match")
+    from dtrenderer_tpu_torch.kernels import binning as kb
+
+    with torch.cuda.device(bbox.device):
+        bins = bin_on_card(bbox, valid, height, width, y_offset, x_offset,
+                           tile_h, tile_w, row_bands, kb)
+    if T:
+        KERNEL_LAUNCHES += 1
+    return bins
+
+
+def bin_on_card(bbox, valid, height: int, width: int, y_offset: int,
+                x_offset: int, tile_h: int, tile_w: int, row_bands: int,
+                kernels) -> Bins:
+    """bin_triangles through `kernels` (kernels/binning.py on the card; the
+    tests hand in the same source built for the host): a count of each
+    triangle's tiles, an int64 scan of the counts into the pairs' ends, one
+    read of the pair count P, one pair a thread (tile, id, and a count per
+    tile), a scan of the tile counts into tile_start and a stable sort of
+    the pairs on the tile's bits. Every launch that does not need P is
+    enqueued before it is read."""
+    if height % row_bands:
+        raise ValueError(f"row_bands={row_bands} must divide the height "
+                         f"{height}")
+    T = bbox.shape[0]
+    if bbox.dtype != I32 or bbox.shape != (T, 4) or \
+            valid.dtype != torch.bool or valid.shape != (T,) or \
+            valid.device != bbox.device:
+        raise ValueError(f"bbox must be i32 [T, 4] and valid bool [T] on one "
+                         f"device, got {bbox.dtype} {tuple(bbox.shape)}, "
+                         f"{valid.dtype} {tuple(valid.shape)} on "
+                         f"{valid.device}")
+    bbox, valid = bbox.contiguous(), valid.contiguous()
+    if bbox.data_ptr() % 16:
+        raise ValueError("bbox must be 16-byte aligned (read as int4)")
+    device = bbox.device
+    grid = (height, width, y_offset, x_offset, tile_h, tile_w, row_bands)
+    n_tiles = _n_tiles(height, width, tile_h, tile_w, row_bands)
+    counts = torch.zeros(n_tiles + 1, dtype=I32, device=device)
+    overflow = torch.zeros((), dtype=I32, device=device)
+    n_pairs = 0
+    if T:
+        n_cover = torch.empty(T, dtype=I64, device=device)
+        kernels.cover(bbox, valid, grid, n_cover)
+        ends = torch.cumsum(n_cover, 0)
+        n_pairs = int(ends[-1])  # the one read back to the host
+    if n_pairs >= 2**31:
+        raise ValueError(f"{n_pairs} pairs: the Bins' int32 offsets hold "
+                         f"fewer than 2^31")
+    tile_of = torch.empty(n_pairs, dtype=I32, device=device)
+    tri_of = torch.empty(n_pairs, dtype=I32, device=device)
+    tri_ids = torch.empty(n_pairs, dtype=I32, device=device)
+    if n_pairs:
+        kernels.pairs(bbox, valid, ends, grid, tile_of, tri_of, counts)
+        kernels.sort_pairs(tile_of, tri_of, torch.empty_like(tile_of),
+                           tri_ids, max(1, (n_tiles - 1).bit_length()))
+    return Bins(tile_start=torch.cumsum(counts, 0, dtype=I32),
+                tri_ids=tri_ids, overflow=overflow, tile_h=tile_h,
+                tile_w=tile_w)
+
+
+def bin_triangles_plain(coef, bbox, valid, height: int, width: int,
+                        y_offset: int = 0, x_offset: int = 0,
+                        tile_h: int = 16, tile_w: int = 16,
+                        row_bands: int = 1) -> Bins:
+    """bin_triangles in plain torch: the CPU path and the kernels' twin."""
     T = coef.shape[0]
     tile, tri = _emit_pairs(bbox, valid, height, width, y_offset, x_offset,
                             tile_h, tile_w, row_bands)
     key = torch.sort(tile * T + tri).values
-    n_tiles = (row_bands * _ceil_div(height // row_bands, tile_h)
-               * _ceil_div(width, tile_w))
-    return _csr(key, T, n_tiles, tile_h, tile_w)
+    return _csr(key, T, _n_tiles(height, width, tile_h, tile_w, row_bands),
+                tile_h, tile_w)
 
 
 def band_bins(bins: Bins, band_index: int, row_bands: int) -> Bins:
