@@ -2,6 +2,9 @@
 """Hardware smoke gate of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, on one card
+    python3 chip_smoke.py --bin-against DIR  # phases 1, 2 and the
+                                     # binning of the checkout at DIR
+                                     # against this tree's, in turns
     python3 chip_smoke.py --bands    # phases 1, 2 and the band split over
                                      # every card (band_paths and
                                      # band_graph_check)
@@ -122,9 +125,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      shapes in their windows and the edge cases: tile_start, tri_ids and
      overflow bit for bit; pairs and tiles per scene; the main paths'
      inputs timed (a loop of 200 device passes without the host read, the
+     same passes captured once in a CUDA graph and replayed 200 times, the
      call against the plain path: plain, kernel, kernel, plain) against the
-     bound by bytes, with the host synchronisations a call counted under
-     torch.cuda.set_sync_debug_mode("warn"): 1 (the plain path's beside it);
+     bound by bytes, with the device operations of a call and their
+     microseconds (torch.profiler) and the host synchronisations a call
+     counted under torch.cuda.set_sync_debug_mode("warn"): 1 (the plain
+     path's beside it);
   7. stage breakdown of one frame per path (vertex stage + packing,
      binning, kernel, merge or deferred shading), after the counted windows;
      and the API frame's verbs one by one (best of three);
@@ -1461,31 +1467,18 @@ def same_bins(tag, got, want):
                                  f"path")
 
 
-def binning_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
-    """csrc/binning.cu (binning.bin_triangles on the card) against
-    bin_triangles_plain on the same inputs, tile_start, tri_ids and overflow
-    bit for bit: every main path's inputs (config 5, config 5 in 8 bands
-    over the shared table, the soup, the fill scene, config 4, the
-    translucent sphere, the API frame's render_meshes run), the stress
-    shapes in their windows and every edge case. The main paths' inputs are
-    timed: a loop of 200 device passes of the kernels on preallocated
-    tensors (the pair count known: no host read), bin_triangles against
-    bin_triangles_plain (plain, kernel, kernel, plain; each call with its
-    read), the bound by bytes (bbox and valid in, tile_start and tri_ids
-    out) and the host synchronisations a call. Returns per scene (0, call
-    ms, plain ms, bound, syncs, plain syncs, pairs, loop readings)."""
+def binning_runs(dev, cfg4, cfg5, sphere) -> list:
+    """The binning phase's inputs: (tag, coef, bbox, valid, height, width,
+    y0, x0, bands, timed), the main paths' inputs (timed) first, then the
+    stress shapes in their windows and every edge case."""
     import torch
 
     from bench_torch import scenes as bench_scenes
-    from dtrenderer_tpu_torch.kernels import binning as kb
     from dtrenderer_tpu_torch.models import edge_cases as ec, stress
-    from dtrenderer_tpu_torch.ops import binning, pipeline
-    from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.ops import pipeline
     from dtrenderer_tpu_torch.ops.shading import make_light
 
-    dev = torch.device(DEVICE)
-    t0 = time.perf_counter()
-    runs = []  # (tag, coef, bbox, valid, height, width, y0, x0, bands, timed)
+    runs = []
     for name, spec, bands in (
             ("config5_4k_1m", cfg5, 1), ("config5_4k_bands8_shared", cfg5, 8),
             ("soup_200k_1080p", bench_scenes.soup_scene(device=dev), 1),
@@ -1516,7 +1509,136 @@ def binning_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
             c.height, c.cull_backfaces, c.near_clip)
         runs.append((f"edge case {c.name!r}", batch.coef, batch.bbox,
                      batch.valid, c.height, c.width, 0, 0, 1, False))
+    return runs
 
+
+def bin_passes(kb, bbox, valid, grid, n_tiles: int, n_pairs: int):
+    """The device passes of one binning.bin_triangles call (csrc/binning.cu:
+    the scan, then the emit, CUB's sort and the tile starts) on tensors
+    allocated here, the pair count known (no host read). Returns (run,
+    result): run() enqueues them, result() is (tile_start, tri_ids,
+    overflow) of the last run."""
+    import torch
+
+    dev = bbox.device
+    T = bbox.shape[0]
+    work = torch.empty(T + 2 + -(-T // kb.budget()), dtype=torch.int64,
+                       device=dev)
+    scratch = torch.empty(kb.scratch_bytes(n_pairs, grid), dtype=torch.uint8,
+                          device=dev)
+    tile_start = torch.empty(n_tiles + 2, dtype=torch.int32, device=dev)
+    tri_ids = torch.empty(n_pairs, dtype=torch.int32, device=dev)
+
+    def run():
+        kb.scan(bbox, valid, grid, work)
+        kb.emit(bbox, valid, work, n_pairs, grid, scratch, tile_start,
+                tri_ids)
+
+    return run, lambda: (tile_start[:-1], tri_ids, tile_start[-1])
+
+
+def bin_passes_per_pair(kb, bbox, valid, grid, n_tiles: int,
+                        n_pairs: int):
+    """bin_passes for the earlier design of csrc/binning.cu (a count, a
+    torch.cumsum, one thread a pair with a binary search and an atomic
+    count per tile, a torch.cumsum into tile_start, CUB's sort; entries
+    cover, pairs and sort_pairs), for `python3 chip_smoke.py --bin-against
+    DIR`."""
+    import torch
+
+    dev = bbox.device
+    n_cover = torch.empty(bbox.shape[0], dtype=torch.int64, device=dev)
+    tally = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+    tile_of, tri_of, keys_out, tri_ids = (
+        torch.empty(n_pairs, dtype=torch.int32, device=dev) for _ in range(4))
+    end_bit = max(1, (n_tiles - 1).bit_length())
+    out = {}
+
+    def run():
+        tally.zero_()
+        kb.cover(bbox, valid, grid, n_cover)
+        ends = torch.cumsum(n_cover, 0)
+        kb.pairs(bbox, valid, ends, grid, tile_of, tri_of, tally)
+        out["tile_start"] = torch.cumsum(tally, 0, dtype=torch.int32)
+        kb.sort_pairs(tile_of, tri_of, keys_out, tri_ids, end_bit)
+
+    return run, lambda: (out["tile_start"], tri_ids, None)
+
+
+def graph_ms(run, reps: int = 200):
+    """Two readings of `run` captured once in a CUDA graph and replayed
+    `reps` times back to back: the card's time for the passes, without the
+    host's enqueue."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return cuda_ms(graph.replay, reps), cuda_ms(graph.replay, reps)
+
+
+def device_ops(fn) -> list:
+    """(name, microseconds) of each device operation (kernel, memset, copy)
+    one fn() (a binning call, which reads the pair count back) enqueues, in
+    the order of the card, from torch.profiler's trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # the trace now and then loses a call's first ops
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if any(e.name.startswith("Memcpy DtoH") for e in ops):
+            break  # the call's read of the pair count is in the trace
+    return [(e.name, e.time_range.elapsed_us()) for e in ops]
+
+
+def short_ops(ops) -> str:
+    """A device-op list in a line: names cut at their '(' or '<', each with
+    its microseconds."""
+    cut = []
+    for name, us in ops:
+        head = name.replace("(anonymous namespace)::", "").split("(")[0]
+        head = head.split("<")[0].strip().removeprefix("void ")
+        cut.append(f"{(head or name).split('::')[-1]} {us:.1f}")
+    return ", ".join(cut)
+
+
+def binning_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
+    """csrc/binning.cu (binning.bin_triangles on the card) against
+    bin_triangles_plain on the same inputs, tile_start, tri_ids and overflow
+    bit for bit: every main path's inputs (config 5, config 5 in 8 bands
+    over the shared table, the soup, the fill scene, config 4, the
+    translucent sphere, the API frame's render_meshes run), the stress
+    shapes in their windows and every edge case. The main paths' inputs are
+    timed: a loop of 200 device passes (bin_passes: the pair count known,
+    no host read), the same passes captured once in a CUDA graph and
+    replayed 200 times (the card's time), bin_triangles against
+    bin_triangles_plain (plain, kernel, kernel, plain; each call with its
+    read), the bound by bytes (bbox and valid in, tile_start and tri_ids
+    out), the device operations a call (torch.profiler) and the host
+    synchronisations a call. Returns per scene (0, call ms, plain ms,
+    bound, syncs, plain syncs, pairs, device ops, graph readings, loop
+    readings)."""
+    import torch
+
+    from dtrenderer_tpu_torch.kernels import binning as kb
+    from dtrenderer_tpu_torch.ops import binning
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    runs = binning_runs(dev, cfg4, cfg5, sphere)
     out = {}
     for tag, coef, bbox, valid, h, w, y0, x0, bands, timed in runs:
         args = (coef, bbox, valid, h, w, y0, x0, rf.TILE_H, rf.TILE_W, bands)
@@ -1534,31 +1656,19 @@ def binning_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
         if not timed:
             print(line)
             continue
-        # the device passes alone, on preallocated tensors, P known
         grid = (h, w, y0, x0, rf.TILE_H, rf.TILE_W, bands)
-        n_cover = torch.empty(coef.shape[0], dtype=torch.int64, device=dev)
-        tally = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
-        tile_of, tri_of, keys_out, tri_ids = (
-            torch.empty(n_pairs, dtype=torch.int32, device=dev)
-            for _ in range(4))
-        end_bit = max(1, (n_tiles - 1).bit_length())
-        loop_out = {}
+        run, result = bin_passes(kb, bbox, valid, grid, n_tiles, n_pairs)
 
-        def passes():
-            tally.zero_()
-            kb.cover(bbox, valid, grid, n_cover)
-            ends = torch.cumsum(n_cover, 0)
-            kb.pairs(bbox, valid, ends, grid, tile_of, tri_of, tally)
-            loop_out["tile_start"] = torch.cumsum(tally, 0,
-                                                  dtype=torch.int32)
-            kb.sort_pairs(tile_of, tri_of, keys_out, tri_ids, end_bit)
+        def same_as_call(how):
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(result(), got[:3])):
+                raise AssertionError(f"binning kernel {tag}: the {how}'s "
+                                     f"Bins differ from the call's")
 
-        loop = launch_loop_ms(passes)
-        torch.cuda.synchronize()
-        if not (torch.equal(loop_out["tile_start"], got.tile_start)
-                and torch.equal(tri_ids, got.tri_ids)):
-            raise AssertionError(f"binning kernel {tag}: the launch loop's "
-                                 f"Bins differ from the call's")
+        loop = launch_loop_ms(run)
+        same_as_call("loop")
+        graph = graph_ms(run)
+        same_as_call("graph")
         k_ms, p_ms, r = interleaved_ms(lambda: binning.bin_triangles(*args),
                                        lambda: binning.bin_triangles_plain(
                                            *args), 20)
@@ -1567,18 +1677,90 @@ def binning_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
         if syncs != 1:
             raise AssertionError(f"binning kernel {tag}: {syncs} host "
                                  f"synchronisations a call, want 1")
+        ops = device_ops(lambda: binning.bin_triangles(*args))
         n_bytes = nbytes(bbox, valid, got.tile_start, got.tri_ids)
         b = bound(n_bytes, 0)
         print(f"{line}; device passes, loop of 200 {loop[0]:.4f}, "
-              f"{loop[1]:.4f} ms, bin_triangles {k_ms:.4f} ms ({r[1]:.4f}, "
+              f"{loop[1]:.4f} ms, graph replayed 200 times {graph[0]:.4f}, "
+              f"{graph[1]:.4f} ms, bin_triangles {k_ms:.4f} ms ({r[1]:.4f}, "
               f"{r[2]:.4f}), plain {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
-              f"bound {b[0]:.4f} ms by {b[1]} ({n_bytes} bytes), loop / "
-              f"bound {min(loop) / b[0]:.1f}, host synchronisations a call "
-              f"{syncs} (plain {plain_syncs}) [{card}]")
-        out[tag] = (0.0, k_ms, p_ms, b, syncs, plain_syncs, n_pairs, loop)
+              f"bound {b[0]:.4f} ms by {b[1]} ({n_bytes} bytes), graph / "
+              f"bound {min(graph) / b[0]:.1f}, host synchronisations a call "
+              f"{syncs} (plain {plain_syncs}), device ops a call {len(ops)} "
+              f"({short_ops(ops)}) [{card}]")
+        out[tag] = (0.0, k_ms, p_ms, b, syncs, plain_syncs, n_pairs, len(ops),
+                    graph, loop)
     print(f"binning kernel vs plain: {len(runs)} runs bit-equal, "
           f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+def binning_against_parent(card, parent: str, cfg4, cfg5, sphere):
+    """The binning of the checkout at `parent` (its csrc/binning.cu and
+    ops/binning.py, e.g. a git archive of the parent commit) against this
+    tree's at the main paths' inputs, in turns (parent, this, this, parent)
+    in one process: the loop of 200 device passes, the graph replayed 200 times,
+    20 calls of bin_on_card with their read, and the device operations a
+    call. Both Bins bit-equal to each other and to the plain path."""
+    import importlib.util
+    import types
+
+    import torch
+
+    from dtrenderer_tpu_torch import kernels
+    from dtrenderer_tpu_torch.kernels import binning as kb
+    from dtrenderer_tpu_torch.ops import binning
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    pkg = os.path.join(os.path.abspath(parent), "dtrenderer_tpu_torch")
+
+    def module(name, rel):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    pkb = module("parent_kernels_binning", "kernels/binning.py")
+    pkb.kernels = types.SimpleNamespace(load=lambda src: kernels.load(
+        src, os.path.join(pkg, "csrc")))
+    pbin = module("parent_ops_binning", "ops/binning.py")
+    info = pkb.library()[1]
+    print(f"parent binning.cu from {parent}: built in {info.seconds:.1f} s")
+    dev = torch.device(DEVICE)
+    for tag, coef, bbox, valid, h, w, y0, x0, bands, timed in binning_runs(
+            dev, cfg4, cfg5, sphere):
+        if not timed:
+            continue
+        grid = (h, w, y0, x0, rf.TILE_H, rf.TILE_W, bands)
+        calls = {"parent": lambda: pbin.bin_on_card(bbox, valid, *grid, pkb),
+                 "this": lambda: binning.bin_on_card(bbox, valid, *grid, kb)}
+        want = binning.bin_triangles_plain(coef, bbox, valid, *grid)
+        for side, call in calls.items():
+            same_bins(f"binning {side} tree {tag}", call(), want)
+        n_pairs, n_tiles = want.tri_ids.shape[0], want.tile_start.shape[0] - 1
+        passes = bin_passes_per_pair if hasattr(pkb, "cover") else bin_passes
+        runs = {"parent": passes(pkb, bbox, valid, grid, n_tiles,
+                                 n_pairs)[0],
+                "this": bin_passes(kb, bbox, valid, grid, n_tiles,
+                                   n_pairs)[0]}
+        order = ("parent", "this", "this", "parent")
+        got = {k: [] for k in ("loop", "graph", "call")}
+        for side in order:
+            got["loop"].append(cuda_ms(runs[side], 200))
+        for side in order:
+            got["graph"].append(graph_ms(runs[side])[0])
+        for side in order:
+            got["call"].append(cuda_ms(calls[side], 20))
+        ops = {side: device_ops(calls[side]) for side in calls}
+        read = " ".join(
+            f"{how} (parent, this, this, parent) "
+            f"{', '.join(f'{v:.4f}' for v in vals)} ms;"
+            for how, vals in got.items())
+        print(f"binning {parent} vs this, {tag} ({n_pairs} pairs): {read} "
+              f"device ops a call {len(ops['parent'])} "
+              f"({short_ops(ops['parent'])}) -> {len(ops['this'])} "
+              f"({short_ops(ops['this'])}) [{card}]")
 
 
 # ------------------------------------------------------ vertex stage graph
@@ -2224,8 +2406,10 @@ def build_all():
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--bands"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--bands]")
+    if not (argv in ([], ["--bands"])
+            or (len(argv) == 2 and argv[0] == "--bin-against")):
+        raise SystemExit("usage: python3 chip_smoke.py [--bands | "
+                         "--bin-against DIR]")
     if not os.path.isdir(os.path.join(REPO, "dtrenderer_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
                          "repository (dtrenderer_tpu_torch/ is missing)")
@@ -2266,9 +2450,12 @@ def main(argv=None) -> int:
     print(f"scene set-up {time.perf_counter() - t0:.1f} s: config 4 "
           f"{cfg4.n_tris} tris, config 5 {cfg5.n_tris} tris, translucent "
           f"sphere {sphere.n_tris} tris")
-    if argv:  # --bands: the band split alone, over every card
-        band_paths(card, cfg4, cfg5, sphere)
-        band_graph_check(card, cfg5)
+    if argv:  # the band split alone over every card, or another binning
+        if argv[0] == "--bands":
+            band_paths(card, cfg4, cfg5, sphere)
+            band_graph_check(card, cfg5)
+        else:
+            binning_against_parent(card, argv[1], cfg4, cfg5, sphere)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -2358,11 +2545,15 @@ def main(argv=None) -> int:
               "pl.pallas_call)", "BN", bn["config5_4k_1m"],
               host_syncs=bn["config5_4k_1m"][4],
               plain_host_syncs=bn["config5_4k_1m"][5],
-              pairs=bn["config5_4k_1m"][6], **{
+              pairs=bn["config5_4k_1m"][6],
+              device_ops=bn["config5_4k_1m"][7],
+              graph_ms=list(bn["config5_4k_1m"][8]), **{
                   f"{k}_{name}": v for name, res in bn.items()
                   if name != "config5_4k_1m"
                   for k, v in (("ms", res[1]), ("plain_ms", res[2]),
                                ("bound_ms", res[3][0]), ("pairs", res[6]),
+                               ("device_ops", res[7]),
+                               ("graph_ms", list(res[8])),
                                ("launch_loop_ms", list(res[-1])))}),
     ]}
     print(json.dumps(report))

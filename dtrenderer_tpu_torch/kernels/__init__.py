@@ -55,23 +55,24 @@ def find_nvcc() -> str:
         "kernels are compiled from csrc/ at first use")
 
 
-def source_digest(source_name: str) -> str:
+def source_digest(source_name: str, csrc_dir: str = CSRC_DIR) -> str:
     """Hash of csrc/<source_name>, every csrc/*.cuh (any of them may be
     included) and the flags: the key of the cached build."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    headers = sorted(n for n in os.listdir(csrc_dir) if n.endswith(".cuh"))
     for name in (source_name, *headers):
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()
 
 
-def build(source_name: str) -> BuildInfo:
+def build(source_name: str, csrc_dir: str = CSRC_DIR) -> BuildInfo:
     """Compile csrc/<source_name> (if its cached build is missing) and
-    return where the shared library is."""
-    src = os.path.join(CSRC_DIR, source_name)
+    return where the shared library is. `csrc_dir` names another tree's
+    csrc/ (to time two versions of a kernel in one process)."""
+    src = os.path.join(csrc_dir, source_name)
     stem = os.path.splitext(source_name)[0]
-    digest = source_digest(source_name)[:16]
+    digest = source_digest(source_name, csrc_dir)[:16]
     out = os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
     log_path = out + ".log"
     if os.path.exists(out):
@@ -101,6 +102,7 @@ def build(source_name: str) -> BuildInfo:
     return BuildInfo(out, time.perf_counter() - t0, False, log)
 
 
-def load(source_name: str) -> tuple[ctypes.CDLL, BuildInfo]:
-    info = build(source_name)
+def load(source_name: str,
+         csrc_dir: str = CSRC_DIR) -> tuple[ctypes.CDLL, BuildInfo]:
+    info = build(source_name, csrc_dir)
     return ctypes.CDLL(info.path), info

@@ -1,8 +1,9 @@
 """ctypes binding of the binning kernels (csrc/binning.cu).
 
-`cover`, `pairs` and `sort_pairs` take tensors the caller has already
-checked (ops/binning.py `bin_on_card` does that) and enqueue their work on
-PyTorch's current CUDA stream of the tensors' device; none synchronises.
+`scan` and `emit` take tensors the caller has already checked
+(ops/binning.py `bin_on_card` does that) and enqueue their work on
+PyTorch's current CUDA stream of the tensors' device; neither
+synchronises. `budget` and `scratch_bytes` launch nothing.
 """
 
 from __future__ import annotations
@@ -23,14 +24,22 @@ def library():
     (ctypes.CDLL, kernels.BuildInfo)."""
     lib, info = kernels.load(SOURCE)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dtr_bin_cover.argtypes = [p, p, ll, i, i, i, i, i, i, i, p, p]
-    lib.dtr_bin_pairs.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, p, p,
-                                  p, p]
-    lib.dtr_bin_sort.argtypes = [p, ctypes.POINTER(ctypes.c_size_t), p, p, p,
-                                 p, i, i, p]
-    for fn in (lib.dtr_bin_cover, lib.dtr_bin_pairs, lib.dtr_bin_sort):
+    lib.dtr_bin_budget.argtypes = []
+    lib.dtr_bin_scan.argtypes = [p, p, ll, i, i, i, i, i, i, i, p, p]
+    lib.dtr_bin_scratch_bytes.argtypes = [ll, i, i, i, i, i, i, i,
+                                          ctypes.POINTER(ctypes.c_size_t)]
+    lib.dtr_bin_emit.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, p,
+                                 ctypes.c_size_t, p, p, p]
+    for fn in (lib.dtr_bin_budget, lib.dtr_bin_scan, lib.dtr_bin_scratch_bytes,
+               lib.dtr_bin_emit):
         fn.restype = ctypes.c_int
     return lib, info
+
+
+@functools.lru_cache(maxsize=1)
+def budget() -> int:
+    """Triangles a scan block takes (one status word each in `work`)."""
+    return library()[0].dtr_bin_budget()
 
 
 def _stream(t):
@@ -42,35 +51,33 @@ def _check(name, err):
         raise RuntimeError(f"binning {name} launch failed: cudaError {err}")
 
 
-def cover(bbox, valid, grid, n_cover) -> None:
-    """n_cover[t] (i64) = the tiles triangle t covers; grid = (height,
-    width, y_offset, x_offset, tile_h, tile_w, row_bands)."""
+def scan(bbox, valid, grid, work) -> None:
+    """work (i64 [T + 2 + ceil(T / budget())]): the pairs' ends [T], the
+    pair count P, the look-back's status words and ticket (cleared here);
+    grid = (height, width, y_offset, x_offset, tile_h, tile_w, row_bands)."""
     lib, _ = library()
-    _check("cover", lib.dtr_bin_cover(
+    _check("scan", lib.dtr_bin_scan(
         bbox.data_ptr(), valid.data_ptr(), bbox.shape[0], *grid,
-        n_cover.data_ptr(), _stream(bbox)))
+        work.data_ptr(), _stream(bbox)))
 
 
-def pairs(bbox, valid, ends, grid, tile_of, tri_of, counts) -> None:
-    """Pair k's tile and triangle, in pair order; counts[1 + tile] += 1."""
+def scratch_bytes(n_pairs: int, grid) -> int:
+    """Bytes of the scratch `emit` needs (CUB's own and the unsorted
+    pairs): a query on the host."""
     lib, _ = library()
-    _check("pairs", lib.dtr_bin_pairs(
-        bbox.data_ptr(), valid.data_ptr(), ends.data_ptr(), bbox.shape[0],
-        tile_of.shape[0], *grid, tile_of.data_ptr(), tri_of.data_ptr(),
-        counts.data_ptr(), _stream(bbox)))
-
-
-def sort_pairs(keys, values, keys_out, values_out, end_bit: int) -> None:
-    """Stable radix sort of (keys, values) by the keys' bits [0, end_bit)
-    into (keys_out, values_out); the scratch is a torch tensor."""
-    lib, _ = library()
-    n = keys.shape[0]
     nbytes = ctypes.c_size_t(0)
-    args = (keys.data_ptr(), keys_out.data_ptr(), values.data_ptr(),
-            values_out.data_ptr(), n, end_bit, _stream(keys))
-    _check("sort (scratch size)", lib.dtr_bin_sort(None, ctypes.byref(nbytes),
-                                                   *args))
-    temp = torch.empty(max(1, nbytes.value), dtype=torch.uint8,
-                       device=keys.device)
-    _check("sort", lib.dtr_bin_sort(temp.data_ptr(), ctypes.byref(nbytes),
-                                    *args))
+    _check("scratch size", lib.dtr_bin_scratch_bytes(n_pairs, *grid,
+                                                     ctypes.byref(nbytes)))
+    return nbytes.value
+
+
+def emit(bbox, valid, work, n_pairs: int, grid, scratch, tile_start,
+         tri_ids) -> None:
+    """The pairs of `work`'s ends, stably sorted by tile into tri_ids
+    (i32 [n_pairs]), and tile_start (i32 [n_tiles + 2]: the CSR offsets,
+    then the overflow word 0)."""
+    lib, _ = library()
+    _check("emit", lib.dtr_bin_emit(
+        bbox.data_ptr(), valid.data_ptr(), work.data_ptr(), bbox.shape[0],
+        n_pairs, *grid, scratch.data_ptr(), scratch.numel(),
+        tile_start.data_ptr(), tri_ids.data_ptr(), _stream(bbox)))

@@ -8,10 +8,11 @@ dropped, so there is no capacity, small/broad split or pair budget, and
 shape.
 
 Which path runs where: on a CUDA tensor `bin_triangles` launches the
-hand-written kernels of `csrc/binning.cu` (`bin_on_card`: a count of each
-triangle's tiles, device scans, one thread per pair, a stable radix sort of
-the pairs on the tile's bits; one value, the pair count, is read back to
-the host) and counts the call in `KERNEL_LAUNCHES`; on a CPU tensor it runs
+hand-written kernels of `csrc/binning.cu` (`bin_on_card`: a single-pass
+count and scan of each triangle's tiles, one read of the pair count back to
+the host, a merge-path emit of the pairs, a stable radix sort of them on
+the tile's bits and the tile starts from the sorted tiles) and counts the
+call in `KERNEL_LAUNCHES`; on a CPU tensor it runs
 `bin_triangles_plain`, the same function in plain torch (pairs sorted on one
 int64 key `tile * T + id`, per-tile starts from a bincount + cumsum) and the
 kernels' twin. There is no fallback between the two: any other device
@@ -96,7 +97,10 @@ def _emit_pairs(bbox, valid, height: int, width: int, y_offset: int,
     ty0 = tile_row(y0)
     span_w = x1 // tile_w - tx0 + 1
     span_h = tile_row(y1) - ty0 + 1
-    n_cover = torch.where(in_shard, span_w * span_h, 0).to(I64)
+    # a span that is not positive (x1's tile column before x0's or y1's
+    # tile row before y0's: an inverted bbox) covers no tile
+    covers = in_shard & (span_w > 0) & (span_h > 0)
+    n_cover = torch.where(covers, span_w * span_h, 0).to(I64)
 
     # one pair per covered tile; k = the pair's index within its triangle
     tri = torch.repeat_interleave(
@@ -145,9 +149,9 @@ def bin_triangles(coef, bbox, valid, height: int, width: int,
     after band): the shared table whose windows `band_bins` cuts.
 
     On a CUDA tensor: csrc/binning.cu (`bin_on_card`, one host read); on a
-    CPU tensor: `bin_triangles_plain`. The same Bins bit for bit for every
-    bbox that triangle setup makes (x0 <= x1 and y0 <= y1 on valid rows;
-    the card bins an inverted one as empty)."""
+    CPU tensor: `bin_triangles_plain`. The same Bins bit for bit; both bin
+    a triangle whose tile span is not positive (an inverted bbox, x1's
+    tile column before x0's or y1's tile row before y0's) as empty."""
     global KERNEL_LAUNCHES
     if bbox.device.type == "cpu":
         return bin_triangles_plain(coef, bbox, valid, height, width,
@@ -175,12 +179,11 @@ def bin_on_card(bbox, valid, height: int, width: int, y_offset: int,
                 x_offset: int, tile_h: int, tile_w: int, row_bands: int,
                 kernels) -> Bins:
     """bin_triangles through `kernels` (kernels/binning.py on the card; the
-    tests hand in the same source built for the host): a count of each
-    triangle's tiles, an int64 scan of the counts into the pairs' ends, one
-    read of the pair count P, one pair a thread (tile, id, and a count per
-    tile), a scan of the tile counts into tile_start and a stable sort of
-    the pairs on the tile's bits. Every launch that does not need P is
-    enqueued before it is read."""
+    tests hand in the same source built for the host): `scan` counts each
+    triangle's tiles into the pairs' ends and the pair count P, the one
+    value read back; `emit` writes the pairs, sorts them stably by tile into
+    tri_ids and writes tile_start and the overflow word from the sorted
+    tiles. Overflow is a view of the word after tile_start."""
     if height % row_bands:
         raise ValueError(f"row_bands={row_bands} must divide the height "
                          f"{height}")
@@ -198,27 +201,29 @@ def bin_on_card(bbox, valid, height: int, width: int, y_offset: int,
     device = bbox.device
     grid = (height, width, y_offset, x_offset, tile_h, tile_w, row_bands)
     n_tiles = _n_tiles(height, width, tile_h, tile_w, row_bands)
-    counts = torch.zeros(n_tiles + 1, dtype=I32, device=device)
-    overflow = torch.zeros((), dtype=I32, device=device)
     n_pairs = 0
     if T:
-        n_cover = torch.empty(T, dtype=I64, device=device)
-        kernels.cover(bbox, valid, grid, n_cover)
-        ends = torch.cumsum(n_cover, 0)
-        n_pairs = int(ends[-1])  # the one read back to the host
+        work = torch.empty(T + 2 + _ceil_div(T, kernels.budget()), dtype=I64,
+                           device=device)
+        kernels.scan(bbox, valid, grid, work)
+        n_pairs = int(work[T])  # the one read back to the host
     if n_pairs >= 2**31:
         raise ValueError(f"{n_pairs} pairs: the Bins' int32 offsets hold "
                          f"fewer than 2^31")
-    tile_of = torch.empty(n_pairs, dtype=I32, device=device)
-    tri_of = torch.empty(n_pairs, dtype=I32, device=device)
+    if not n_pairs:
+        return Bins(tile_start=torch.zeros(n_tiles + 1, dtype=I32,
+                                           device=device),
+                    tri_ids=torch.empty(0, dtype=I32, device=device),
+                    overflow=torch.zeros((), dtype=I32, device=device),
+                    tile_h=tile_h, tile_w=tile_w)
+    tile_start = torch.empty(n_tiles + 2, dtype=I32, device=device)
     tri_ids = torch.empty(n_pairs, dtype=I32, device=device)
-    if n_pairs:
-        kernels.pairs(bbox, valid, ends, grid, tile_of, tri_of, counts)
-        kernels.sort_pairs(tile_of, tri_of, torch.empty_like(tile_of),
-                           tri_ids, max(1, (n_tiles - 1).bit_length()))
-    return Bins(tile_start=torch.cumsum(counts, 0, dtype=I32),
-                tri_ids=tri_ids, overflow=overflow, tile_h=tile_h,
-                tile_w=tile_w)
+    scratch = torch.empty(kernels.scratch_bytes(n_pairs, grid),
+                          dtype=torch.uint8, device=device)
+    kernels.emit(bbox, valid, work, n_pairs, grid, scratch, tile_start,
+                 tri_ids)
+    return Bins(tile_start=tile_start[:-1], tri_ids=tri_ids,
+                overflow=tile_start[-1], tile_h=tile_h, tile_w=tile_w)
 
 
 def bin_triangles_plain(coef, bbox, valid, height: int, width: int,

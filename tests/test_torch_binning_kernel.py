@@ -6,7 +6,8 @@ Bars:
     nothing; on a device that is neither CPU nor CUDA it raises, and
     `bin_on_card` raises on inputs the kernels do not read: no fallback;
   * csrc/binning.cu itself, compiled for the host with g++ and a few shims
-    (one OS thread per CUDA thread of a block, atomics for the tile counts,
+    (one OS thread per CUDA thread of a block, the blocks one after
+    another, shared memory as static arrays, a barrier for __syncthreads,
     and a stable sort on the key's low bits in place of CUB's radix sort),
     driven by `bin_on_card` exactly as on the card, gives the Bins of
     `bin_triangles_plain` bit for bit (tile_start, tri_ids, overflow) on:
@@ -15,11 +16,19 @@ Bars:
     them), empty and off-screen scenes, the shapes of models/stress.py (the
     686-deep pile and the edge grids, whole and in windows), the
     `huge_vertices` and `nonfinite_uvs` cases of models/edge_cases.py, a
-    full-screen triangle, no pair at all, one triangle, and random bboxes
-    (hypothesis). Checked without a card (skipped where there is no g++);
+    full-screen triangle, no pair at all, one triangle, random bboxes
+    (hypothesis), inverted bboxes on valid rows, and the edges of the
+    blocks' budgets (a block that starts mid-triangle, one triangle over
+    several blocks, a zero-cover run longer than a budget, P and T + P
+    exact multiples of it, a scan over more than three blocks); the scan's
+    look-back alone over status words that blocks in flight leave.
+    Checked without a card (skipped where there is no g++);
+  * the plain path bins an inverted bbox (a tile span that is not
+    positive) as empty;
   * nothing of the new modules imports JAX or the JAX package;
   * on the card (`gpu`): the kernel against its twin on random soups, the
-    stress shapes and the edge cases, one host synchronise a call where
+    stress shapes, the edge cases, the budgets' edges and inverted bboxes,
+    one host synchronise a call where
     the plain path has more (four calls that synchronise, counted under
     torch's sync debug mode), and one count a call (python -m pytest
     --noconftest -m gpu tests/test_torch_binning_kernel.py).
@@ -149,12 +158,17 @@ def test_the_new_modules_import_no_jax():
 
 # ------------------------------------------- the kernel source on the host
 
-# What nvcc gives the kernels and g++ does not: CUDA's int4, the launch's
-# indices (one OS thread per CUDA thread of a block) and atomicAdd.
+# What nvcc gives the kernels and g++ does not: CUDA's vector types, the
+# launch's indices (one OS thread per CUDA thread of a block), shared
+# memory (a static array: the blocks of a grid run one after another),
+# __syncthreads (one barrier for the block's threads), __threadfence and
+# atomicAdd.
 HOST_SHIM = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
+#include <cstring>
 #include <numeric>
 #include <thread>
 #include <vector>
@@ -163,108 +177,158 @@ HOST_SHIM = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+#define __shared__ static
 struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
 struct dim3 { unsigned x, y, z; };
 static dim3 blockIdx;
 static thread_local dim3 threadIdx;
-inline int atomicAdd(int* p, int v) {
-  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+static std::barrier<>* host_block_barrier;
+inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <typename T>
+inline T atomicAdd(T* p, T v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 using std::min; using std::max;
 typedef int cudaError_t;
 """
 
 HOST_LAUNCH = r"""
-// A block's threads start together (a barrier), so that their atomic
-// adds into one tile's count meet as they do on the card.
+// The blocks of a grid one after another, last blockIdx first (the scan's
+// slots come from its ticket, not from blockIdx), each with its threads
+// started together and one barrier for their __syncthreads.
 template <typename F>
-static void host_grid(int64_t n, F body) {
-  for (int64_t b = 0; b * kThreads < n; ++b) {
+static void host_blocks(int64_t blocks, F body) {
+  for (int64_t b = blocks - 1; b >= 0; --b) {
     blockIdx.x = static_cast<unsigned>(b);
-    std::barrier<> start(kThreads);
+    std::barrier<> barrier(kThreads);
+    host_block_barrier = &barrier;
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < kThreads; ++t)
-      threads.emplace_back([=, &start] {
+      threads.emplace_back([=] {
         threadIdx.x = t;
-        start.arrive_and_wait();
         body();
       });
     for (auto& th : threads) th.join();
   }
 }
 
-extern "C" void host_bin_cover(const int* bbox, const bool* valid,
-                               int64_t n_tris, int height, int width,
-                               int y_offset, int x_offset, int tile_h,
-                               int tile_w, int row_bands, int64_t* n_cover) {
+extern "C" int host_bin_budget() { return kBudget; }
+
+extern "C" void host_bin_scan(const int* bbox, const bool* valid,
+                              int64_t n_tris, int height, int width,
+                              int y_offset, int x_offset, int tile_h,
+                              int tile_w, int row_bands, int64_t* work) {
+  if (n_tris <= 0) return;
   const Grid g = make_grid(height, width, y_offset, x_offset, tile_h, tile_w,
                            row_bands);
-  host_grid(n_tris, [=] {
-    bin_cover_kernel(reinterpret_cast<const int4*>(bbox), valid, n_tris, g,
-                     n_cover);
+  const int64_t blocks = (n_tris + kBudget - 1) / kBudget;
+  int64_t* status = work + n_tris + 1;
+  std::memset(status, 0, (blocks + 1) * sizeof(int64_t));
+  host_blocks(blocks, [=] {
+    bin_scan_kernel(reinterpret_cast<const int4*>(bbox), valid, n_tris, g,
+                    work, work + n_tris,
+                    reinterpret_cast<unsigned long long*>(status),
+                    reinterpret_cast<unsigned*>(status + blocks));
   });
 }
 
-extern "C" void host_bin_pairs(const int* bbox, const bool* valid,
-                               const int64_t* ends, int64_t n_tris,
-                               int64_t n_pairs, int height, int width,
-                               int y_offset, int x_offset, int tile_h,
-                               int tile_w, int row_bands, int* tile_of,
-                               int* tri_of, int* counts) {
-  const Grid g = make_grid(height, width, y_offset, x_offset, tile_h, tile_w,
-                           row_bands);
-  host_grid(n_pairs, [=] {
-    bin_pairs_kernel(reinterpret_cast<const int4*>(bbox), valid, ends,
-                     n_tris, n_pairs, g,
-                     reinterpret_cast<unsigned*>(tile_of), tri_of, counts);
-  });
+// No CUB scratch: the host sort needs none.
+extern "C" size_t host_bin_scratch_bytes(int64_t n_pairs) {
+  return 3 * align256(n_pairs * sizeof(int));
 }
 
-// CUB's contract: a stable sort of (key, value) on the keys' bits
-// [0, end_bit), keys read as unsigned.
-extern "C" void host_bin_sort(const int* keys_in, int* keys_out,
-                              const int* values_in, int* values_out, int n,
-                              int end_bit) {
-  const unsigned mask = end_bit >= 32 ? ~0u : (1u << end_bit) - 1u;
-  std::vector<int> order(n);
+// dtr_bin_emit, with CUB's contract for the sort: a stable sort of (key,
+// value) on the keys' bits [0, end_bit), keys read as unsigned.
+extern "C" void host_bin_emit(const int* bbox, const bool* valid,
+                              const int64_t* work, int64_t n_tris,
+                              int64_t n_pairs, int height, int width,
+                              int y_offset, int x_offset, int tile_h,
+                              int tile_w, int row_bands, void* scratch,
+                              size_t scratch_bytes, int* tile_start,
+                              int* tri_ids) {
+  if (n_pairs <= 0) return;
+  const Grid g = make_grid(height, width, y_offset, x_offset, tile_h, tile_w,
+                           row_bands);
+  const size_t array = align256(n_pairs * sizeof(int));
+  char* at = static_cast<char*>(scratch) + (scratch_bytes - 3 * array);
+  unsigned* tile_of = reinterpret_cast<unsigned*>(at);
+  int* tri_of = reinterpret_cast<int*>(at + array);
+  unsigned* keys = reinterpret_cast<unsigned*>(at + 2 * array);
+  host_blocks((n_tris + n_pairs + kBudget - 1) / kBudget, [=] {
+    bin_emit_kernel(reinterpret_cast<const int4*>(bbox), valid, work, n_tris,
+                    n_pairs, g, tile_of, tri_of);
+  });
+  const int bits = end_bit(g);
+  const unsigned mask = bits >= 32 ? ~0u : (1u << bits) - 1u;
+  std::vector<int64_t> order(n_pairs);
   std::iota(order.begin(), order.end(), 0);
-  std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
-    return (static_cast<unsigned>(keys_in[a]) & mask) <
-           (static_cast<unsigned>(keys_in[b]) & mask);
+  std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    return (tile_of[a] & mask) < (tile_of[b] & mask);
   });
-  for (int i = 0; i < n; ++i) {
-    keys_out[i] = keys_in[order[i]];
-    values_out[i] = values_in[order[i]];
+  for (int64_t i = 0; i < n_pairs; ++i) {
+    keys[i] = tile_of[order[i]];
+    tri_ids[i] = tri_of[order[i]];
   }
+  host_blocks((n_pairs + kThreads - 1) / kThreads, [=] {
+    bin_starts_kernel(keys, n_pairs, g.n_tiles, tile_start);
+  });
+}
+
+// The emit's merge-path search alone: one block per two diagonals.
+extern "C" void host_merge_splits(const int64_t* ends, int64_t n_tris,
+                                  int64_t n_pairs, const int64_t* diagonals,
+                                  int64_t n, int64_t* splits) {
+  for (int64_t q = 0; q + 1 < n; q += 2)
+    host_blocks(1, [=] {
+      merge_splits(ends, n_tris, n_pairs, diagonals[q], diagonals[q + 1],
+                   splits + q);
+    });
+}
+
+// The scan's look-back alone, by one block, over status words the caller
+// set.
+extern "C" int64_t host_look_back(const unsigned long long* status,
+                                  int64_t slot) {
+  int64_t before = 0;
+  host_blocks(1, [=, &before] {
+    const int64_t sum = look_back(status, slot);
+    if (threadIdx.x == 0) before = sum;
+  });
+  return before;
 }
 """
 
 
 class HostKernels:
-    """kernels/binning.py's three entries over the host build, for
-    bin_on_card on CPU tensors."""
+    """kernels/binning.py's entries over the host build, for bin_on_card on
+    CPU tensors."""
 
     def __init__(self, dll):
         self.dll = dll
         self.calls = []
 
-    def cover(self, bbox, valid, grid, n_cover):
-        self.calls.append("cover")
-        self.dll.host_bin_cover(bbox.data_ptr(), valid.data_ptr(),
-                                bbox.shape[0], *grid, n_cover.data_ptr())
+    def budget(self):
+        return self.dll.host_bin_budget()
 
-    def pairs(self, bbox, valid, ends, grid, tile_of, tri_of, counts):
-        self.calls.append("pairs")
-        self.dll.host_bin_pairs(bbox.data_ptr(), valid.data_ptr(),
-                                ends.data_ptr(), bbox.shape[0],
-                                tile_of.shape[0], *grid, tile_of.data_ptr(),
-                                tri_of.data_ptr(), counts.data_ptr())
+    def scan(self, bbox, valid, grid, work):
+        self.calls.append("scan")
+        self.dll.host_bin_scan(bbox.data_ptr(), valid.data_ptr(),
+                               bbox.shape[0], *grid, work.data_ptr())
 
-    def sort_pairs(self, keys, values, keys_out, values_out, end_bit):
-        self.calls.append("sort")
-        self.dll.host_bin_sort(keys.data_ptr(), keys_out.data_ptr(),
-                               values.data_ptr(), values_out.data_ptr(),
-                               keys.shape[0], end_bit)
+    def scratch_bytes(self, n_pairs, grid):
+        return self.dll.host_bin_scratch_bytes(n_pairs)
+
+    def emit(self, bbox, valid, work, n_pairs, grid, scratch, tile_start,
+             tri_ids):
+        self.calls.append("emit")
+        self.dll.host_bin_emit(bbox.data_ptr(), valid.data_ptr(),
+                               work.data_ptr(), bbox.shape[0], n_pairs,
+                               *grid, scratch.data_ptr(), scratch.numel(),
+                               tile_start.data_ptr(), tri_ids.data_ptr())
 
 
 @pytest.fixture(scope="module")
@@ -280,7 +344,7 @@ def host_kernels(tmp_path_factory):
         src = f.read()
     src = src.replace("#include <cuda_runtime.h>", HOST_SHIM)
     src = src.replace("#include <cub/device/device_radix_sort.cuh>", "")
-    src = src[:src.index('extern "C" cudaError_t dtr_bin_cover(')]
+    src = src[:src.index('extern "C"')]
     out = tmp_path_factory.mktemp("binning_host")
     cpp, lib = out / "binning_host.cpp", out / "binning_host.so"
     cpp.write_text(src + HOST_LAUNCH)
@@ -290,10 +354,15 @@ def host_kernels(tmp_path_factory):
     assert res.returncode == 0, res.stderr
     dll = ctypes.CDLL(str(lib))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    dll.host_bin_cover.argtypes = [p, p, ll, i, i, i, i, i, i, i, p]
-    dll.host_bin_pairs.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, p,
-                                   p, p]
-    dll.host_bin_sort.argtypes = [p, p, p, p, i, i]
+    size = ctypes.c_size_t
+    dll.host_bin_scan.argtypes = [p, p, ll, i, i, i, i, i, i, i, p]
+    dll.host_bin_scratch_bytes.argtypes = [ll]
+    dll.host_bin_scratch_bytes.restype = size
+    dll.host_bin_emit.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, p,
+                                  size, p, p]
+    dll.host_look_back.argtypes = [p, ll]
+    dll.host_merge_splits.argtypes = [p, ll, ll, p, ll, p]
+    dll.host_look_back.restype = ll
     return dll
 
 
@@ -328,7 +397,7 @@ def test_the_kernel_source_on_the_host_equals_the_plain_path(host_kernels,
     h, w, y0, x0 = shard[:4]
     coef, bbox, valid = _soup(h * 7 + w + y0, 400, h + y0 + 20, w + x0 + 20)
     want, calls = _host_vs_plain(host_kernels, coef, bbox, valid, *shard)
-    assert calls == ["cover", "pairs", "sort"]
+    assert calls == ["scan", "emit"]
     assert want.tri_ids.shape[0] > 0
 
 
@@ -341,7 +410,7 @@ def test_the_kernel_source_on_the_host_on_empty_and_offscreen_scenes(
         # second case: the whole scene lies left of a shard at x >= 64
         want, calls = _host_vs_plain(host_kernels, coef, bbox, valid, 32, 32,
                                      0, 64, 16, 16, 1)
-        assert want.tri_ids.shape == (0,) and calls == ["cover"]
+        assert want.tri_ids.shape == (0,) and calls == ["scan"]
         assert want.tile_start.tolist() == [0] * 5
     want, _ = _host_vs_plain(host_kernels, coef, bbox,
                              torch.ones(5, dtype=torch.bool), 32, 32, 0, 0,
@@ -426,6 +495,197 @@ def test_the_kernel_source_on_the_host_on_random_bboxes(host_kernels, data):
                    h, w, y_off, x_off, th, tw, n_bands)
 
 
+def _items(bbox, valid, grid):
+    """The merged sequence the emit cuts into blocks, from the plain path:
+    per triangle its pairs, then its end; (is_pair, triangle) per item."""
+    _, tri = pbin._emit_pairs(bbox, valid, *grid)
+    counts = np.bincount(tri.numpy(), minlength=bbox.shape[0])
+    items = []
+    for t, n in enumerate(counts):
+        items += [(True, t)] * int(n) + [(False, t)]
+    return items, counts
+
+
+def _one_tile_each(n, per_row):
+    """n triangles, one 16 x 16 tile each, row-major over per_row tile
+    columns."""
+    k = np.arange(n)
+    x, y = (k % per_row) * 16 + 3, (k // per_row) * 16 + 3
+    return torch.tensor(np.stack([x, y, x + 2, y + 2], 1).astype(np.int32))
+
+
+def _budget_case(name, budget):
+    """(bbox, valid, grid) of one edge of the blocks' budgets."""
+    ones = lambda n: torch.ones(n, dtype=torch.bool)  # noqa: E731
+    if name == "budget starts mid-triangle":
+        _, bbox, valid = _soup(21, 3000, 1080, 1920, big=0.2)
+        return bbox, valid, (1080, 1920, 0, 0, 16, 16, 1)
+    if name == "one triangle over several blocks":
+        _, small, _ = _soup(12, 40, 1080, 1920, big=0.0)
+        full = torch.tensor([[0, 0, 1919, 1079]], dtype=torch.int32)
+        bbox = torch.cat([small[:20], full, small[20:]])
+        return bbox, ones(41), (1080, 1920, 0, 0, 16, 16, 1)
+    if name == "zero-cover run longer than a budget":
+        _, bbox, _ = _soup(13, 2 * budget + 700, 256, 256, big=0.1)
+        valid = ones(bbox.shape[0])
+        valid[3:3 + 2 * budget + 300] = False
+        return bbox, valid, (256, 256, 0, 0, 16, 16, 1)
+    if name == "P = budget, one triangle":
+        # 64 x 64 tiles; the bbox spans budget / 64 tile rows of 64
+        n_rows = budget // 64
+        bbox = torch.tensor([[0, 0, 1023, n_rows * 16 - 1]], dtype=torch.int32)
+        return bbox, ones(1), (1024, 1024, 0, 0, 16, 16, 1)
+    if name == "P = 2 budgets = T":
+        return (_one_tile_each(2 * budget, 64), ones(2 * budget),
+                (2 * budget // 64 * 16, 1024, 0, 0, 16, 16, 1))
+    if name == "T + P = budget":
+        return (_one_tile_each(budget // 2, 64), ones(budget // 2),
+                (1024, 1024, 0, 0, 16, 16, 1))
+    if name == "look-back over three blocks":
+        _, bbox, valid = _soup(14, 3 * budget + 5, 300, 400, big=0.05)
+        return bbox, valid, (300, 400, 0, 0, 16, 16, 1)
+    raise KeyError(name)
+
+
+BUDGET_CASES = ["budget starts mid-triangle",
+                "one triangle over several blocks",
+                "zero-cover run longer than a budget",
+                "P = budget, one triangle", "P = 2 budgets = T",
+                "T + P = budget", "look-back over three blocks"]
+
+
+@pytest.mark.parametrize("name", BUDGET_CASES)
+def test_the_kernel_source_on_the_host_at_the_block_budgets(host_kernels,
+                                                             name):
+    """Each case first shows that it reaches its edge of the scan's and the
+    emit's blocks of `budget` items, then holds the host build to the
+    plain path."""
+    budget = host_kernels.host_bin_budget()
+    bbox, valid, grid = _budget_case(name, budget)
+    items, counts = _items(bbox, valid, grid)
+    T, P = len(counts), int(counts.sum())
+    cuts = range(budget, len(items), budget)
+    blocks = [items[d:d + budget] for d in range(0, len(items), budget)]
+    if name == "budget starts mid-triangle":
+        assert any(items[d - 1][0] and items[d][0]
+                   and items[d - 1][1] == items[d][1] for d in cuts)
+    elif name == "one triangle over several blocks":
+        spread = max(sum(any(it == (True, t) for it in blk) for blk in blocks)
+                     for t in np.flatnonzero(counts == counts.max()))
+        assert spread >= 3
+    elif name == "zero-cover run longer than a budget":
+        assert any(not any(is_pair for is_pair, _ in blk) for blk in blocks)
+    elif name == "P = budget, one triangle":
+        assert (T, P) == (1, budget)
+    elif name == "P = 2 budgets = T":
+        assert T == P == 2 * budget and (T + P) % budget == 0
+    elif name == "T + P = budget":
+        assert T + P == budget
+    else:
+        assert -(-T // budget) >= 3  # scan blocks
+    want, calls = _host_vs_plain(host_kernels, torch.zeros((T, 16)), bbox,
+                                 valid, *grid, tag=name)
+    assert calls == ["scan", "emit"] and want.tri_ids.shape[0] == P
+
+
+def test_the_look_back_reads_aggregates_until_a_prefix(host_kernels):
+    """The scan's look-back over status words as blocks in flight leave
+    them: slot 4 adds the aggregates of slots 3 and 2 and stops at slot 1's
+    prefix (slot 0's is read, not added); slot 300 adds 299 aggregates over
+    two windows of the block's words down to slot 0's prefix."""
+    agg, pre = 1 << 62, 2 << 62
+    status = (ctypes.c_ulonglong * 301)(agg | 1000, pre | 12, agg | 3,
+                                        agg | 4, agg | 5)
+    addr = ctypes.addressof(status)
+    assert host_kernels.host_look_back(addr, 0) == 0
+    assert host_kernels.host_look_back(addr, 4) == 12 + 3 + 4
+    assert host_kernels.host_look_back(addr, 5) == 12 + 3 + 4 + 5
+    status[0] = pre | 7
+    for i in range(1, 300):
+        status[i] = agg | 1
+    assert host_kernels.host_look_back(addr, 300) == 7 + 299
+    assert host_kernels.host_look_back(addr, 1) == 7
+
+
+def test_the_merge_path_search_equals_a_plain_search(host_kernels):
+    """The emit's block-wide search of its diagonals against the merge path
+    itself (triangle t's end is item t + ends[t]: the triangles among the
+    first d items are the ends before d), on ends with long zero-cover runs
+    and wide triangles; among the diagonals, those whose answer lies just
+    past the last probe of the first round (a range of over 128 * 127
+    triangles, behind a triangle of more pairs than that)."""
+    rng = np.random.default_rng(17)
+    n = 20000
+    counts = rng.integers(0, 6, n) * (rng.random(n) < 0.6)
+    counts[500:1400] = 0
+    counts[2000] = 900
+    counts[-1] = 25000  # diagonals near P then search ranges of ~T
+    ends = np.cumsum(counts).astype(np.int64)
+    T, P = n, int(ends[-1])
+    d = np.arange(T + P + 1)
+    want = np.searchsorted(np.arange(T) + ends, d, side="left")
+    probes = 128  # kThreads / 2
+    lo, hi = np.maximum(0, d - P), np.minimum(d, T)
+    step = -(-(hi - lo) // probes)
+    edge = np.flatnonzero((hi - lo > probes)
+                          & (want == lo + (probes - 1) * step + 1))
+    assert edge.size, "no diagonal reaches the search's last probe"
+    diagonals = np.unique(np.concatenate([
+        edge[:40], rng.integers(0, T + P + 1, 58), [0, T + P]]))
+    diagonals = diagonals[:len(diagonals) // 2 * 2].astype(np.int64)
+    splits = np.zeros_like(diagonals)
+    host_kernels.host_merge_splits(ends.ctypes.data, T, P,
+                                   diagonals.ctypes.data, len(diagonals),
+                                   splits.ctypes.data)
+    assert splits.tolist() == want[diagonals].tolist()
+
+
+INVERTED = torch.tensor([[100, 0, 0, 50], [100, 100, 0, 0]], dtype=torch.int32)
+
+
+def test_the_plain_path_bins_an_inverted_bbox_as_empty():
+    """A valid row whose span is not positive bins nothing: alone, among
+    other triangles, over bands and in the distributed binning."""
+    ok = torch.tensor([[10, 20, 40, 70]], dtype=torch.int32)
+    for bands in (1, 4):
+        grid = (128, 128, 0, 0, 16, 16, bands)
+        alone = pbin.bin_triangles_plain(torch.zeros((2, 16)), INVERTED,
+                                         torch.ones(2, dtype=torch.bool),
+                                         *grid)
+        assert alone.tri_ids.shape == (0,)
+        assert not alone.tile_start.any()
+        bbox = torch.cat([INVERTED[:1], ok, INVERTED[1:]])
+        mixed = pbin.bin_triangles_plain(torch.zeros((3, 16)), bbox,
+                                         torch.ones(3, dtype=torch.bool),
+                                         *grid)
+        only = pbin.bin_triangles_plain(torch.zeros((1, 16)), ok,
+                                        torch.ones(1, dtype=torch.bool),
+                                        *grid)
+        assert torch.equal(mixed.tile_start, only.tile_start)
+        assert set(mixed.tri_ids.tolist()) == {1}
+    valid = torch.ones(3, dtype=torch.bool)
+    bands = pbin.bin_triangles_distributed([bbox] * 4, [valid] * 4, 128, 128,
+                                           4)
+    assert {i for b in bands for i in pbin.window_ids(b).tolist()} == {1}
+
+
+@pytest.mark.parametrize("where", ["alone", "in a soup"])
+def test_the_kernel_source_on_the_host_on_inverted_bboxes(host_kernels,
+                                                          where):
+    if where == "alone":
+        bbox = INVERTED
+    else:
+        _, soup, _ = _soup(15, 200, 128, 128)
+        bbox = torch.cat([soup[:50], INVERTED, soup[50:]])
+        flip = torch.from_numpy(np.random.default_rng(15).random(bbox.shape[0])
+                                < 0.2)
+        bbox[flip] = bbox[flip][:, [2, 3, 0, 1]]  # x1, y1 before x0, y0
+    valid = torch.ones(bbox.shape[0], dtype=torch.bool)
+    for bands in (1, 4):
+        _host_vs_plain(host_kernels, torch.zeros((bbox.shape[0], 16)), bbox,
+                       valid, 128, 128, 0, 0, 16, 16, bands, tag=where)
+
+
 # --------------------------------------------------------------- the card
 
 
@@ -470,6 +730,29 @@ def test_the_kernel_equals_its_twin_on_the_edge_cases(name):
     batch, _, _ = ec.pack(c, CPU)
     _card_vs_plain(batch.coef, batch.bbox, batch.valid, c.height, c.width, 0,
                    0, 16, 16, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", BUDGET_CASES)
+def test_the_kernel_equals_its_twin_at_the_block_budgets(name):
+    _card()
+    from dtrenderer_tpu_torch.kernels import binning as kb
+
+    bbox, valid, grid = _budget_case(name, kb.budget())
+    _card_vs_plain(torch.zeros((bbox.shape[0], 16)), bbox, valid, *grid)
+
+
+@pytest.mark.gpu
+def test_the_kernel_bins_an_inverted_bbox_as_its_twin_does():
+    _, soup, _ = _soup(15, 5000, 1080, 1920)
+    bbox = torch.cat([soup[:50], INVERTED, soup[50:]])
+    flip = torch.from_numpy(np.random.default_rng(16).random(bbox.shape[0])
+                            < 0.2)
+    bbox[flip] = bbox[flip][:, [2, 3, 0, 1]]
+    valid = torch.ones(bbox.shape[0], dtype=torch.bool)
+    for bands in (1, 8):
+        _card_vs_plain(torch.zeros((bbox.shape[0], 16)), bbox, valid, 1080,
+                       1920, 0, 0, 16, 16, bands)
 
 
 def _syncs(fn):
