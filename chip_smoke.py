@@ -12,11 +12,11 @@
 Run from the root of a checkout. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile the five kernel sources (csrc/render_fused.cu = K1,
+  2. build: compile the six kernel sources (csrc/render_fused.cu = K1,
      csrc/raster_visibility.cu = K2, csrc/render_ordered.cu = K3,
      csrc/vertex_pass.cu = VP, the vertex stage, csrc/binning.cu = BN, the
-     binning), one nvcc per source, all started together; seconds,
-     registers and spills;
+     binning, csrc/shade_deferred.cu = DS, the deferred shading), one nvcc
+     per source, all started together; seconds, registers and spills;
   3. kernel vs plain twin at the main paths' shapes, both timed with CUDA
      events (plain, kernel, kernel, plain):
        K1 at config 4 (1920x1080) and config 5 (3840x2160, 1,000,000
@@ -27,6 +27,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
        K3 at the translucent sphere (uv_sphere(50, 52), 5,096 triangles,
          1920x1080 over a cleared framebuffer): depth bit-equal, colour max
          |diff| <= 1e-6, packed u8 within +-1 with zero outliers;
+       DS at config 5 on "pallas" (K2's z and tri) and at config 4's four
+         1080p draws on "pallas" (textured, Phong, bilinear), each draw
+         into the framebuffer of the draws before it: depth bit-equal,
+         colour max |diff| 0 against shade_deferred_plain; 20 wrapper
+         calls against the plain twin and the launch loop, beside the
+         bound by bytes;
      each kernel is also timed, twice, as 200 back-to-back launches of its
      ctypes entry on preallocated outputs between two CUDA events
      ("launch loop"): the 20-70 us kernels (K3, K1 and K2 at config 4) are
@@ -44,11 +50,14 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      vertex_batch.run_pass and by every replay of a graph that captured it;
      never on "pallas"; BN: once per binning.bin_triangles call, i.e. per
      K1, K2 or K3 launch that bins for itself, once per shared table, never
-     for the distributed exchange):
+     for the distributed exchange; DS: once per pipeline.shade_deferred
+     call, i.e. per draw on "pallas" and "ref" and per render_triangle):
        config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
          frames: one K1 launch per frame;
-       config 5 on backend "pallas", 2 frames: one K2 launch per frame;
-       config 4 on backend "pallas", 2 frames: four K2 launches per frame;
+       config 5 on backend "pallas", 2 frames: one K2 and one DS launch
+         per frame;
+       config 4 on backend "pallas", 2 frames: four K2 and four DS
+         launches per frame;
        the translucent sphere through draw_mesh_ordered, 3 frames: one K3
          launch per frame;
        config 4's draws at 1080p with the first sphere translucent
@@ -60,8 +69,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
          rectangles, a line, a circle, a rotated scaled bilinear blit),
          render_mesh_ordered of the translucent sphere (one K3 launch), a
          textured render_triangle, the DebugHud with the frame's counters,
-         a proportional footer, finish_frame: K1 3, K2 0, K3 3; then one
-         demo_frame on "pallas": K2 3. The last frame is written with
+         a proportional footer, finish_frame: K1 3, K2 0, K3 3, DS 3; then
+         one demo_frame on "pallas": K2 3, DS 3. The last frame is written with
          present_png, decoded again natively and must equal the packed
          frame byte for byte;
      ms/frame, shaded Mpix/s and Mtris/s;
@@ -575,6 +584,100 @@ def k3_vs_plain(scene, card):
     return err, k_ms, p_ms, b, loop
 
 
+# The deferred shading kernel (DS): float32 operations per winning pixel
+# besides its shading (shade_ops) and blend (BLEND_OPS): three edge
+# functions (2 mul, 2 add each) and three barycentric products; bytes per
+# pixel: z, tri, depth and colour read, colour and depth written.
+DS_BARY_OPS = 15
+DS_PIXEL_BYTES = 4 + 4 + 4 + 16 + 16 + 4
+DS_SETUP_BYTES = 48  # the setup row's first three float4 (edges, inv_area2)
+
+
+def ds_vs_plain(spec, card):
+    """DS on each draw of a "pallas" scene as the main path runs it: K2's z
+    and tri of the draw, shaded into the framebuffer that the draws before
+    it made (the first a cleared one); pipeline.shade_deferred on the card
+    against shade_deferred_plain, depth bit-equal and colour max |diff| 0.
+    Returns (max |colour diff|, summed wrapper ms, summed plain ms, bound,
+    the two launch-loop readings summed over the draws)."""
+    import torch
+
+    from dtrenderer_tpu_torch.kernels import shade_deferred as kds
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    dev = torch.device(DEVICE)
+    h, w = spec.height, spec.width
+    sub = spec.submission(0.5)
+    fb = fblib.create(h, w, dev)
+    k_ms = p_ms = err = 0.0
+    loop = [0.0, 0.0]
+    n_bytes = n_ops = 0
+    for i, d in enumerate(sub.draws):
+        staged = pipeline.stage_draw_mesh(
+            dev, d.mesh, d.model, sub.view_proj, h, w, texture=d.texture,
+            light=sub.light, color=d.color, shading=d.shading,
+            sampling_mode=sub.sampling_mode, backend="pallas",
+            near_clip=sub.near_clip)
+        setup = staged.setup
+        z, tri = rp.rasterize_bins(setup.coef, bin_batch(setup, h, w), h, w)
+        attrs = staged.attrs10.contiguous()
+        lut = staged.texture.contiguous().reshape(-1, 4)
+        args = (fb, z, tri, setup.coef, attrs, staged.texture,
+                staged.sampling_mode, staged.shading, staged.light)
+        got = pipeline.shade_deferred(*args)
+        want = pipeline.shade_deferred_plain(*args)
+        torch.cuda.synchronize()
+        tag = f"DS {spec.name} draw {i}"
+        if not torch.equal(got.depth.view(torch.int32),
+                           want.depth.view(torch.int32)):
+            raise AssertionError(f"{tag}: depth differs at "
+                                 f"{int((got.depth != want.depth).sum())} "
+                                 f"pixels")
+        e = float((got.color - want.color).abs().max())
+        if not e == 0.0:
+            raise AssertionError(f"{tag}: colour max |diff| {e}, want 0")
+        win = (tri >= 0) & (z < fb.depth)
+        n_win = int(win.sum())
+        print(f"{tag}: depth bit-equal, colour max |diff| {e:.3g}, winning "
+              f"px {n_win}")
+        k, pl, r = interleaved_ms(
+            lambda: pipeline.shade_deferred(*args),
+            lambda: pipeline.shade_deferred_plain(*args), 20)
+        if lut.data_ptr() % 16:
+            raise AssertionError(f"{tag}: texture not 16-byte aligned")
+        flags = rf.pack_flags(staged.shading == "phong",
+                              staged.sampling_mode == "bilinear")
+        th, tw = staged.texture.shape[0], staged.texture.shape[1]
+        scal = rf.light_scalars(staged.light)
+        out_c, out_d = torch.empty_like(fb.color), torch.empty_like(fb.depth)
+        lp = launch_loop_ms(lambda: kds.launch(
+            z, tri, fb.depth, fb.color, setup.coef, attrs, lut, scal, out_c,
+            out_d, tw, th, flags, h, w, 0, 0))
+        print(f"{tag}: wrapper {k:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), launch "
+              f"loop {lp[0]:.4f}, {lp[1]:.4f} ms, plain twin {pl:.4f} ms "
+              f"({r[0]:.4f}, {r[3]:.4f}) [{card}]")
+        k_ms, p_ms, err = k_ms + k, p_ms + pl, max(err, e)
+        loop = [loop[0] + lp[0], loop[1] + lp[1]]
+        # the rows and attribute channels of the triangles that win a pixel
+        # (7 of a corner's 10, all 10 with Phong), the texture once
+        n_rows = int(torch.unique(tri[win]).numel())
+        attr_bytes = 3 * 4 * (10 if staged.shading == "phong" else 7)
+        n_bytes += (h * w * DS_PIXEL_BYTES
+                    + n_rows * (DS_SETUP_BYTES + attr_bytes) + nbytes(lut))
+        n_ops += (n_win * (DS_BARY_OPS + BLEND_OPS)
+                  + shade_ops(torch.full((n_win,), flags, device=dev)))
+        fb = got
+    b = bound(n_bytes, n_ops)
+    print(f"DS {spec.name}: wrapper {k_ms:.4f} ms, launch loop "
+          f"{loop[0]:.4f}, {loop[1]:.4f} ms ({loop[0] / b[0]:.2f}x, "
+          f"{loop[1] / b[0]:.2f}x the bound), plain twin {p_ms:.4f} ms over "
+          f"{len(sub.draws)} draw(s), bound {b[0]:.4f} ms by {b[1]} "
+          f"({n_bytes} bytes, {n_ops} f32 ops) [{card}]")
+    return err, k_ms, p_ms, b, tuple(loop)
+
+
 def stress_vs_plain():
     """K1 and K2 against their plain twins, bit for bit, at shapes the
     scenes do not reach (models/stress.py): a tile of more than 512
@@ -627,11 +730,12 @@ def stress_vs_plain():
 
 
 def reset_counts():
-    from dtrenderer_tpu_torch.ops import binning, raster_ordered
+    from dtrenderer_tpu_torch.ops import binning, pipeline, raster_ordered
     from dtrenderer_tpu_torch.ops import raster_pallas, render_fused
     from dtrenderer_tpu_torch.ops import vertex_batch, vertex_graph
 
     binning.KERNEL_LAUNCHES = 0
+    pipeline.KERNEL_LAUNCHES = 0
     render_fused.KERNEL_LAUNCHES = 0
     raster_pallas.KERNEL_LAUNCHES = 0
     raster_ordered.KERNEL_LAUNCHES = 0
@@ -643,8 +747,9 @@ def read_counts() -> dict:
     """Launches of each kernel since reset_counts; "VP", the vertex kernel,
     is launched by vertex_batch.run_pass and by every replay of a graph
     that captured it (vertex_graph.REPLAYS); "BN", the binning kernels, by
-    binning.bin_triangles."""
-    from dtrenderer_tpu_torch.ops import binning, raster_ordered
+    binning.bin_triangles; "DS", the deferred shading kernel, by
+    pipeline.shade_deferred."""
+    from dtrenderer_tpu_torch.ops import binning, pipeline, raster_ordered
     from dtrenderer_tpu_torch.ops import raster_pallas, render_fused
     from dtrenderer_tpu_torch.ops import vertex_batch, vertex_graph
 
@@ -652,16 +757,18 @@ def read_counts() -> dict:
             "K2": raster_pallas.KERNEL_LAUNCHES,
             "K3": raster_ordered.KERNEL_LAUNCHES,
             "VP": vertex_batch.KERNEL_LAUNCHES + vertex_graph.REPLAYS,
-            "BN": binning.KERNEL_LAUNCHES}
+            "BN": binning.KERNEL_LAUNCHES,
+            "DS": pipeline.KERNEL_LAUNCHES}
 
 
 def launches_ok(got: dict, want: dict) -> bool:
-    """K1, K2, K3 and BN launched exactly as `want` says; the vertex kernel at
+    """K1, K2, K3, BN and DS launched exactly as `want` says; the vertex kernel at
     least want["VP"] times (once per pack_draws call: a capture's first
     call launches it twice, warm-up and replay), or never when that is 0
     (the "pallas" and "ref" routes stage with prepare_draw)."""
     vp_ok = got["VP"] >= want["VP"] if want["VP"] else got["VP"] == 0
-    return vp_ok and all(got[k] == want[k] for k in ("K1", "K2", "K3", "BN"))
+    return vp_ok and all(got[k] == want[k]
+                         for k in ("K1", "K2", "K3", "BN", "DS"))
 
 
 def frames(scene, n: int, card, tag: str):
@@ -769,7 +876,7 @@ def api_frame_path(card) -> dict:
     state, n, _ = platform.run_app(update, api.new_state(w, h, device=dev), 3,
                                    script)
     got = read_counts()
-    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6, "BN": 6}
+    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6, "BN": 6, "DS": 3}
     if not launches_ok(got, want) or n != 3:
         raise AssertionError(f"API frame: kernel launches {got}, want {want}")
     if torch.equal(images[0], images[2]):
@@ -800,7 +907,7 @@ def api_frame_path(card) -> dict:
         api.new_state(w, h, device=dev), 0.6, frame.cube, frame.ball,
         frame.tex, frame.grad, "pallas"))
     got2 = read_counts()
-    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 0, "BN": 3}
+    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 0, "BN": 3, "DS": 3}
     if not launches_ok(got2, want2):
         raise AssertionError(f"demo frame on pallas: kernel launches {got2}, "
                              f"want {want2}")
@@ -1048,7 +1155,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     from dtrenderer_tpu_torch.utils.benchlib import device_time
 
     dev = torch.device(DEVICE)
-    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0}
+    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0}
     rows = 8
     mesh8 = shard.make_mesh(frames=1, rows=rows)
     mesh42 = shard.make_mesh(frames=1, rows=4, cols=2)
@@ -1071,7 +1178,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     single = {}
     for backend, key in (("fused", "K1"), ("pallas", "K2")):
         want = {"K1": 0, "K2": 0, "K3": 0, key: 2,
-                "VP": 2 if backend == "fused" else 0, "BN": 2}
+                "VP": 2 if backend == "fused" else 0, "BN": 2,
+                "DS": 0 if backend == "fused" else 2}
         single[backend], times = counted(
             f"config 5 {backend} single launch", want, total,
             lambda: timed_frames(lambda: pipeline.draw_mesh(
@@ -1094,7 +1202,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
         got, times = counted(
             f"config 5 fused, {rows} bands, {way}",
             {"K1": 2 * rows, "K2": 0, "K3": 0, "VP": 2,
-             "BN": 2 * tables[way]}, total,
+             "BN": 2 * tables[way], "DS": 0}, total,
             lambda: timed_frames(lambda: sharded5("fused", opts), 2))
         bits_equal(f"config 5 fused, {rows} bands, {way}", got,
                    single["fused"])
@@ -1108,7 +1216,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
         got, times = counted(
             f"config 5 draw_mesh row_bands, {way}",
             {"K1": rows, "K2": 0, "K3": 0, "VP": 1,
-             "BN": {"shared": 1, "distributed": 0, "per band": rows}[way]},
+             "BN": {"shared": 1, "distributed": 0, "per band": rows}[way],
+             "DS": 0},
             total,
             lambda: timed_frames(lambda: pipeline.draw_mesh(
                 fb5, d.mesh, d.model, sub.view_proj, backend="fused",
@@ -1125,7 +1234,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     per_call = counted(
         "config 5 row_bands shared, device_time",
         {"K1": rows * (iters + 1), "K2": 0, "K3": 0, "VP": iters + 1,
-         "BN": iters + 1}, total,
+         "BN": iters + 1, "DS": 0}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused",
             raster_opts=ways[1][1], **kw), device=fb5.depth.device,
@@ -1133,7 +1242,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     whole_call = counted(
         "config 5 single launch, device_time",
         {"K1": iters + 1, "K2": 0, "K3": 0, "VP": iters + 1,
-         "BN": iters + 1}, total,
+         "BN": iters + 1, "DS": 0}, total,
         lambda: device_time(lambda: pipeline.draw_mesh(
             fb5, d.mesh, d.model, sub.view_proj, backend="fused", **kw),
             device=fb5.depth.device, iters=iters, warmup_iters=1))
@@ -1144,7 +1253,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
 
     got, times = counted(
         f"config 5 pallas, {rows} bands",
-        {"K1": 0, "K2": 2 * rows, "K3": 0, "VP": 0, "BN": 2 * rows}, total,
+        {"K1": 0, "K2": 2 * rows, "K3": 0, "VP": 0, "BN": 2 * rows,
+         "DS": 2 * rows}, total,
         lambda: timed_frames(lambda: sharded5("pallas", None), 2))
     bits_equal(f"config 5 pallas, {rows} bands", got, single["pallas"])
     print(f"band paths: config 5 pallas, {rows} bands, per band binning: z "
@@ -1215,7 +1325,8 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     cut4 = shard.create_sharded_fb(h4, w4, mesh42, batch=1)
     got, times = counted(
         "config 4, 4 x 2 tiles",
-        {"K1": 2 * 8, "K2": 0, "K3": 0, "VP": 2, "BN": 2 * 8}, total,
+        {"K1": 2 * 8, "K2": 0, "K3": 0, "VP": 2, "BN": 2 * 8, "DS": 0},
+        total,
         lambda: timed_frames(lambda: shard.gather_fb(
             shard.render_frames_sharded(band_fn, cut4, mesh42, t4), dev),
             2))
@@ -1234,12 +1345,13 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     cuts = shard.shard_fb(fbs, mesh8)
     want_s, t_one = counted(
         "sphere single launch",
-        {"K1": 0, "K2": 0, "K3": 2, "VP": 2, "BN": 2}, total,
+        {"K1": 0, "K2": 0, "K3": 2, "VP": 2, "BN": 2, "DS": 0}, total,
         lambda: timed_frames(lambda: pipeline.draw_mesh_ordered(
             fbs, ds.mesh, ds.model, subs.view_proj, **kws), 2))
     got, times = counted(
         f"sphere, {rows} bands",
-        {"K1": 0, "K2": 0, "K3": 2 * rows, "VP": 2, "BN": 2 * rows}, total,
+        {"K1": 0, "K2": 0, "K3": 2 * rows, "VP": 2, "BN": 2 * rows,
+         "DS": 0}, total,
         lambda: timed_frames(lambda: shard.gather_fb(
             shard.draw_mesh_ordered_sharded(
                 cuts, ds.mesh, ds.model, subs.view_proj, mesh8, **kws), dev),
@@ -2247,7 +2359,8 @@ def edge_cases_check() -> dict:
     got = read_counts()
     n_draws = sum(len(c.draws) for c in cases)
     want = {"K1": len(cases), "K2": n_draws, "K3": n_draws,
-            "VP": len(cases) + n_draws, "BN": len(cases) + 2 * n_draws}
+            "VP": len(cases) + n_draws, "BN": len(cases) + 2 * n_draws,
+            "DS": 2 * n_draws}
     if not launches_ok(got, want):
         raise AssertionError(f"edge cases: kernel launches {got}, want {want}")
     for case in cases:
@@ -2377,10 +2490,10 @@ def build_all():
     """One nvcc per kernel source, all started together."""
     from dtrenderer_tpu_torch.kernels import binning, raster_visibility
     from dtrenderer_tpu_torch.kernels import render_fused, render_ordered
-    from dtrenderer_tpu_torch.kernels import vertex_pass
+    from dtrenderer_tpu_torch.kernels import shade_deferred, vertex_pass
 
     mods = (render_fused, raster_visibility, render_ordered, vertex_pass,
-            binning)
+            binning, shade_deferred)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         infos = list(ex.map(lambda m: m.library()[1], mods))
@@ -2419,7 +2532,7 @@ def main(argv=None) -> int:
     from dtrenderer_tpu_torch.ops import render_fused as rf
     from dtrenderer_tpu_torch.ops import vertex_batch
 
-    *raster, vp, _ = build_all()
+    *raster, vp, _, _ = build_all()
     for m in raster:
         if m.tile_shape() != (rf.TILE_H, rf.TILE_W):
             raise AssertionError(f"{m.SOURCE} tile {m.tile_shape()} != "
@@ -2455,20 +2568,22 @@ def main(argv=None) -> int:
     k2_5 = k2_vs_plain(cfg5p, card)
     k2_4 = k2_vs_plain(cfg4p, card)
     k3 = k3_vs_plain(sphere, card)
+    ds_5 = ds_vs_plain(cfg5p, card)
+    ds_4 = ds_vs_plain(cfg4p, card)
     stress_vs_plain()
 
-    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0}
     paths = [
         ("K1 path", [(cfg4, 3), (cfg5, 2)],
-         {"K1": 5, "K2": 0, "K3": 0, "VP": 5, "BN": 5}),
+         {"K1": 5, "K2": 0, "K3": 0, "VP": 5, "BN": 5, "DS": 0}),
         ("K2 path config 5", [(cfg5p, 2)],
-         {"K1": 0, "K2": 2, "K3": 0, "VP": 0, "BN": 2}),
+         {"K1": 0, "K2": 2, "K3": 0, "VP": 0, "BN": 2, "DS": 2}),
         ("K2 path config 4", [(cfg4p, 2)],
-         {"K1": 0, "K2": 8, "K3": 0, "VP": 0, "BN": 8}),
+         {"K1": 0, "K2": 8, "K3": 0, "VP": 0, "BN": 8, "DS": 8}),
         ("K3 path", [(sphere, 3)],
-         {"K1": 0, "K2": 0, "K3": 3, "VP": 3, "BN": 3}),
+         {"K1": 0, "K2": 0, "K3": 3, "VP": 3, "BN": 3, "DS": 0}),
         ("mixed path", [(mixed, 2)],
-         {"K1": 4, "K2": 0, "K3": 2, "VP": 6, "BN": 6}),
+         {"K1": 4, "K2": 0, "K3": 2, "VP": 6, "BN": 6, "DS": 0}),
     ]
     for tag, runs, want in paths:
         for k, n in main_path(tag, runs, want, card).items():
@@ -2544,6 +2659,12 @@ def main(argv=None) -> int:
                                ("device_ops", res[7]),
                                ("graph_ms", list(res[8])),
                                ("launch_loop_ms", list(res[-1])))}),
+        entry("shade_deferred", "shade_deferred.cu",
+              "dtrenderer_tpu/ops/pipeline.py:164 shade_deferred (XLA ops: "
+              "no pl.pallas_call)", "DS", (max(ds_4[0], ds_5[0]), *ds_5[1:]),
+              ms_config4_1080p=ds_4[1], plain_ms_config4_1080p=ds_4[2],
+              bound_ms_config4_1080p=ds_4[3][0],
+              launch_loop_ms_config4_1080p=list(ds_4[4])),
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

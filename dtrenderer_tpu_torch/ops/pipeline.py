@@ -8,7 +8,8 @@ vertex stage and the binning, then one kernel launch, then the merge:
   fused raster+shade kernel (ops/render_fused.py), merged with
   `win = z < fb.depth; color = where(win, blend_over(src, color), color)`;
 - `draw_mesh(backend="pallas")`: the visibility kernel
-  (ops/raster_pallas.py), then `shade_deferred`;
+  (ops/raster_pallas.py), then `shade_deferred` (on a CUDA device one
+  launch of the deferred shading kernel, csrc/shade_deferred.cu);
 - `draw_mesh(backend="ref")`: the plain-torch full-frame raster
   (ops/raster_ref.py), then `shade_deferred`;
 - `draw_mesh_ordered` and the translucent draws of `draw_meshes`: the
@@ -49,7 +50,7 @@ from dtrenderer_tpu_torch.ops.raster_ordered import render_ordered
 from dtrenderer_tpu_torch.ops.raster_pallas import rasterize_pallas
 from dtrenderer_tpu_torch.ops.raster_ref import rasterize_ref
 from dtrenderer_tpu_torch.ops.render_fused import (
-    TILE_H, TILE_W, render_fused,
+    TILE_H, TILE_W, light_scalars, pack_flags, render_fused,
 )
 from dtrenderer_tpu_torch.ops.shading import (
     SHADING_FLAT, SHADING_GOURAUD, SHADING_NONE, SHADING_PHONG, Light,
@@ -62,6 +63,10 @@ from dtrenderer_tpu_torch.utils.math3d import (
 
 F32 = torch.float32
 SAMPLING_MODES = ("nearest", "bilinear")
+
+# Launches of the deferred shading kernel (csrc/shade_deferred.cu) made by
+# shade_deferred (CUDA tensors only).
+KERNEL_LAUNCHES = 0
 
 
 def gather_corner_data(mesh, model, mvp, normal_mat, light: Light, color,
@@ -380,14 +385,13 @@ def _shade_fragments(ip, texture, sampling_mode: str, shading: str,
     return src
 
 
-def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
-                   sampling_mode: str, shading_mode: str, light: Light,
-                   y_offset: int = 0, x_offset: int = 0) -> Framebuffer:
-    """Deferred pass: shade the winning fragments of a visibility G-buffer
-    (z, tri) and merge them into the framebuffer. attrs: q-premultiplied
-    corner attrs [T, 3, 10]. Only the pixels that win the depth test are
-    gathered and shaded (the reference gathers the whole frame); the values
-    are the same."""
+def shade_deferred_plain(fb: Framebuffer, z, tri, coef, attrs, texture,
+                         sampling_mode: str, shading_mode: str, light: Light,
+                         y_offset: int = 0, x_offset: int = 0) -> Framebuffer:
+    """shade_deferred in plain torch: its CPU path and the twin of
+    csrc/shade_deferred.cu. Only the pixels that win the depth test are
+    gathered (`nonzero`, a host read on a CUDA tensor) and shaded; the
+    reference gathers the whole frame, and the values are the same."""
     win = (tri >= 0) & (z < fb.depth)
     color = fb.color.clone()
     ys, xs = win.nonzero(as_tuple=True)
@@ -403,6 +407,77 @@ def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
                                light)
         color[ys, xs] = blend_over(src, fb.color[ys, xs])
     return Framebuffer(color=color, depth=torch.where(win, z, fb.depth))
+
+
+def _kernel_plane(name: str, t, dtype, shape, device):
+    """A deferred kernel input checked and made contiguous and 16-byte
+    aligned (the kernel reads colour, setup rows and texels as float4; a
+    shard's planes may be strided views, a texture a view at an offset)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"shade_deferred: {name} must be {dtype} "
+                         f"{list(shape)}, got {t.dtype} {list(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"shade_deferred: {name} is on {t.device}, the "
+                         f"framebuffer on {device}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
+                   sampling_mode: str, shading_mode: str, light: Light,
+                   y_offset: int = 0, x_offset: int = 0) -> Framebuffer:
+    """Deferred pass: shade the winning fragments of a visibility G-buffer
+    (z [H, W] f32, tri [H, W] i32, -1 uncovered) and merge them into the
+    framebuffer: a pixel wins where tri >= 0 and z < fb.depth. coef: the
+    setup rows [T, 16]; attrs: q-premultiplied corner attrs [T, 3, 10];
+    texture [th, tw, 4]. (y_offset, x_offset) is fb's origin in the frame
+    the rows were set up for. Returns a new Framebuffer; fb is not written.
+
+    On a CPU tensor this is shade_deferred_plain. On a CUDA tensor it is one
+    launch of csrc/shade_deferred.cu (counted in KERNEL_LAUNCHES), with no
+    host read; a failed build or launch raises. Other devices raise."""
+    global KERNEL_LAUNCHES
+    device = fb.depth.device
+    if device.type == "cpu":
+        return shade_deferred_plain(fb, z, tri, coef, attrs, texture,
+                                    sampling_mode, shading_mode, light,
+                                    y_offset, x_offset)
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"shade_deferred runs on CUDA (kernel) or CPU (plain twin), not "
+            f"{device.type}")
+    _check_sampling(sampling_mode)
+    h, w = fb.depth.shape
+    T = coef.shape[0]
+    if texture.dim() != 3 or texture.shape[0] * texture.shape[1] < 1:
+        raise ValueError(f"shade_deferred: texture must be [th, tw, 4], got "
+                         f"{list(texture.shape)}")
+    th, tw = int(texture.shape[0]), int(texture.shape[1])
+    planes = dict(
+        z=_kernel_plane("z", z, F32, (h, w), device),
+        tri=_kernel_plane("tri", tri, torch.int32, (h, w), device),
+        depth=_kernel_plane("fb.depth", fb.depth, F32, (h, w), device),
+        color=_kernel_plane("fb.color", fb.color, F32, (h, w, 4), device),
+        coef=_kernel_plane("coef", coef, F32, (T, geometry.SETUP_CHANNELS),
+                           device),
+        attrs=_kernel_plane("attrs", attrs, F32, (T, 3, 10), device),
+        tex_lut=_kernel_plane("texture", texture, F32, (th, tw, 4),
+                              device).reshape(th * tw, 4))
+    out = Framebuffer(color=torch.empty((h, w, 4), dtype=F32, device=device),
+                      depth=torch.empty((h, w), dtype=F32, device=device))
+    if h * w == 0:
+        return out
+    from dtrenderer_tpu_torch.kernels import shade_deferred as ds
+
+    flags = pack_flags(shading_mode == SHADING_PHONG,
+                       sampling_mode == "bilinear")
+    scalars = light_scalars(light).to(device)
+    with torch.cuda.device(device):
+        ds.launch(**planes, scalars=scalars, out_color=out.color,
+                  out_depth=out.depth, tw=tw, th=th, flags=flags, height=h,
+                  width=w, y_offset=int(y_offset), x_offset=int(x_offset))
+    KERNEL_LAUNCHES += 1
+    return out
 
 
 class StagedDraw(NamedTuple):

@@ -38,7 +38,7 @@ Deliberate differences from the reference:
   copy there (`_mirror`), kept for as long as the tensor lives: the other
   cards replay their graphs as the scene's own card does.
 - Host synchronisation inside a band's work (binning's `repeat_interleave`
-  and bucket cuts, `shade_deferred`'s `nonzero`) makes the one thread wait
+  and bucket cuts, `rasterize_ref`'s `nonzero`) makes the one thread wait
   there, so bands whose route has such a point are enqueued one after the
   other whatever their streams.
 """
