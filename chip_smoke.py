@@ -47,16 +47,17 @@ Run from the root of a checkout. Phases, each of which raises on failure:
   4. main paths through the public entry points, each with every kernel's
      launch count set to 0 just before and read just after (VP: at least
      once per pack_draws call on "fused" and "tile", counted by
-     vertex_batch.run_pass and by every replay of a graph that captured it;
-     never on "pallas"; BN: once per binning.bin_triangles call, i.e. per
+     vertex_batch.run_pass and by every replay of a graph that captured it,
+     and once per draw staged on "pallas", "ref" and "scan" (an eager
+     vertex_batch.pack); BN: once per binning.bin_triangles call, i.e. per
      K1, K2 or K3 launch that bins for itself, once per shared table, never
      for the distributed exchange; DS: once per pipeline.shade_deferred
      call, i.e. per draw on "pallas" and "ref" and per render_triangle):
        config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
          frames: one K1 launch per frame;
-       config 5 on backend "pallas", 2 frames: one K2 and one DS launch
-         per frame;
-       config 4 on backend "pallas", 2 frames: four K2 and four DS
+       config 5 on backend "pallas", 2 frames: one VP, one K2 and one DS
+         launch per frame;
+       config 4 on backend "pallas", 2 frames: four VP, four K2 and four DS
          launches per frame;
        the translucent sphere through draw_mesh_ordered, 3 frames: one K3
          launch per frame;
@@ -70,7 +71,7 @@ Run from the root of a checkout. Phases, each of which raises on failure:
          render_mesh_ordered of the translucent sphere (one K3 launch), a
          textured render_triangle, the DebugHud with the frame's counters,
          a proportional footer, finish_frame: K1 3, K2 0, K3 3, DS 3; then
-         one demo_frame on "pallas": K2 3, DS 3. The last frame is written with
+         one demo_frame on "pallas": VP 3, K2 3, DS 3. The last frame is written with
          present_png, decoded again natively and must equal the packed
          frame byte for byte;
      ms/frame, shaded Mpix/s and Mtris/s;
@@ -84,7 +85,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
          frames each: 8 K1 launches a frame; the same three ways through
          draw_mesh(raster_opts row_bands=8) on the whole framebuffer, the
          shared one also as benchlib.device_time over 5 calls;
-       config 5 on "pallas", 8 bands, 2 frames: 8 K2 launches a frame;
+       config 5 on "pallas", 8 bands, 2 frames: 8 K2 launches a frame and
+         one VP launch per card of the mesh;
        the three ways' binning alone (ms) and their kept pairs, equal per
          tile with ids ascending; K1's eight band launches back to back
          against the one whole-frame launch (CUDA events);
@@ -143,8 +145,15 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      counted under torch.cuda.set_sync_debug_mode("warn"): 1 (the plain
      path's beside it);
   7. stage breakdown of one frame per path (vertex stage + packing,
-     binning, kernel, merge or deferred shading), after the counted windows;
-     and the API frame's verbs one by one (best of three);
+     binning, kernel, merge or deferred shading; on "pallas" the vertex
+     stage is stage_draw_mesh, with prepare_draw timed beside it), after
+     the counted windows; and the API frame's verbs one by one (best of
+     three); then staging vs prepare_draw: the vertex stage of "pallas",
+     "ref" and "scan" (one VP launch, no vertex graph sighting) against
+     prepare_draw on the card at config 5 ("pallas") and config 4's four
+     draws (all three routes): setup.coef, bbox, valid and attrs10
+     bit-equal, NaN at the same places, attrs10 read by DS without a copy;
+     host ops and ms a frame of the stage, prepare_draw and plan_run;
   8. reference check, small frames on the card against the same frames on
      the CPU: configs 1-3 (160x120) on "ref", "pallas" and "fused", configs
      4 and 5 small on "fused", and a 160x120 translucent sphere through the
@@ -622,7 +631,7 @@ def ds_vs_plain(spec, card):
             near_clip=sub.near_clip)
         setup = staged.setup
         z, tri = rp.rasterize_bins(setup.coef, bin_batch(setup, h, w), h, w)
-        attrs = staged.attrs10.contiguous()
+        attrs = staged.attrs10  # a view of row stride 34, read in place
         lut = staged.texture.contiguous().reshape(-1, 4)
         args = (fb, z, tri, setup.coef, attrs, staged.texture,
                 staged.sampling_mode, staged.shading, staged.light)
@@ -764,8 +773,8 @@ def read_counts() -> dict:
 def launches_ok(got: dict, want: dict) -> bool:
     """K1, K2, K3, BN and DS launched exactly as `want` says; the vertex kernel at
     least want["VP"] times (once per pack_draws call: a capture's first
-    call launches it twice, warm-up and replay), or never when that is 0
-    (the "pallas" and "ref" routes stage with prepare_draw)."""
+    call launches it twice, warm-up and replay; once per draw staged on
+    "pallas", "ref" or "scan"), or never when that is 0."""
     vp_ok = got["VP"] >= want["VP"] if want["VP"] else got["VP"] == 0
     return vp_ok and all(got[k] == want[k]
                          for k in ("K1", "K2", "K3", "BN", "DS"))
@@ -907,7 +916,7 @@ def api_frame_path(card) -> dict:
         api.new_state(w, h, device=dev), 0.6, frame.cube, frame.ball,
         frame.tex, frame.grad, "pallas"))
     got2 = read_counts()
-    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 0, "BN": 3, "DS": 3}
+    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 3, "BN": 3, "DS": 3}
     if not launches_ok(got2, want2):
         raise AssertionError(f"demo frame on pallas: kernel launches {got2}, "
                              f"want {want2}")
@@ -989,6 +998,24 @@ def verb_times(frame, card, best_ms, all_ms):
 # ---------------------------------------------------------- stage breakdown
 
 
+def host_ops(fn) -> int:
+    """The ATen operations the host dispatches while fn() runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with CountOps() as ops:
+        fn()
+    return ops.n
+
+
 def timed(fn):
     import torch
 
@@ -1021,38 +1048,172 @@ def stages_fused(spec, card):
           f"{t_bin:.3f}, render_fused {t_k:.3f}, merge {t_merge:.3f} [{card}]")
 
 
-def stages_pallas(spec, card):
-    """One backend="pallas" draw's stages (vertex stage, binning, K2,
-    shade_deferred), per draw of the scene."""
+def stage_draw(spec, sub, d, route="pallas"):
+    """The vertex stage of one draw of a scene on `route`:
+    pipeline.stage_draw_mesh ("pallas", "ref") or stage_draw_mesh_ordered
+    ("scan")."""
     import torch
 
-    from dtrenderer_tpu_torch.models.primitives import white_texture
-    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline
-    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+    from dtrenderer_tpu_torch.ops import pipeline
+
+    args = (torch.device(DEVICE), d.mesh, d.model, sub.view_proj,
+            spec.height, spec.width)
+    kw = dict(texture=d.texture, light=sub.light, color=d.color,
+              shading=d.shading, sampling_mode=sub.sampling_mode,
+              near_clip=sub.near_clip)
+    if route == "scan":
+        return pipeline.stage_draw_mesh_ordered(*args, engine="scan", **kw)
+    return pipeline.stage_draw_mesh(*args, backend=route, **kw)
+
+
+def prepare_draw_of(spec, sub, d):
+    """pipeline.prepare_draw of the same draw: the per-draw vertex stage in
+    plain torch that stage_draw_mesh replaced on "pallas" and "ref"."""
+    from dtrenderer_tpu_torch.ops import pipeline
     from dtrenderer_tpu_torch.utils.math3d import mat4mul
 
-    dev = torch.device(DEVICE)
-    fb = fblib.create(spec.height, spec.width, dev)
+    return pipeline.prepare_draw(
+        d.mesh, d.model, sub.view_proj, mat4mul(sub.view_proj, d.model),
+        d.model, sub.light, d.color, d.shading, spec.width, spec.height, True,
+        sub.near_clip)
+
+
+def stages_pallas(spec, card):
+    """One backend="pallas" draw's stages (vertex stage = stage_draw_mesh,
+    binning, K2, shade_deferred), per draw of the scene, with prepare_draw
+    of the same draws timed beside the vertex stage."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+
+    fb = fblib.create(spec.height, spec.width, torch.device(DEVICE))
     sub = spec.submission(0.5)
-    tot = [0.0] * 4
+    tot = [0.0] * 5
     for d in sub.draws:
-        (setup, attrs), t_vert = timed(lambda: pipeline.prepare_draw(
-            d.mesh, d.model, sub.view_proj, mat4mul(sub.view_proj, d.model),
-            d.model, sub.light, d.color, d.shading, spec.width, spec.height,
-            True, sub.near_clip))
+        staged, t_vert = timed(lambda: stage_draw(spec, sub, d))
+        _, t_prep = timed(lambda: prepare_draw_of(spec, sub, d))
+        setup = staged.setup
         bins, t_bin = timed(lambda: bin_batch(setup, spec.height,
                                               spec.width))
         (z, tri), t_k = timed(lambda: rp.rasterize_bins(
             setup.coef, bins, spec.height, spec.width))
-        tex = d.texture if d.texture is not None else white_texture(
-            device=dev)
         fb, t_sh = timed(lambda: pipeline.shade_deferred(
-            fb, z, tri, setup.coef, attrs, tex, sub.sampling_mode, d.shading,
-            sub.light))
-        tot = [a + b for a, b in zip(tot, (t_vert, t_bin, t_k, t_sh))]
+            fb, z, tri, setup.coef, staged.attrs10, staged.texture,
+            staged.sampling_mode, staged.shading, staged.light))
+        tot = [a + b for a, b in zip(tot, (t_vert, t_bin, t_k, t_sh,
+                                           t_prep))]
     print(f"{spec.name} pallas stages (ms, {len(sub.draws)} draw(s)): vertex "
-          f"{tot[0]:.3f}, binning {tot[1]:.3f}, rasterize_bins {tot[2]:.3f}, "
+          f"{tot[0]:.3f} (stage_draw_mesh; prepare_draw {tot[4]:.3f}), "
+          f"binning {tot[1]:.3f}, rasterize_bins {tot[2]:.3f}, "
           f"shade_deferred {tot[3]:.3f} [{card}]")
+
+
+def staging_vs_prepare_draw(card, cfg4p, cfg5p, reps: int = 10):
+    """The vertex stage of "pallas", "ref" and "scan" (one eager
+    vertex_batch.pack, one VP launch) against prepare_draw on the card, at
+    config 5 on "pallas" and at config 4's four draws on all three routes:
+    setup.coef, bbox, valid and attrs10 bit-equal (NaN at the same places);
+    one VP launch a staging and no vertex graph sighting; attrs10 handed to
+    DS without a copy. Then per scene on "pallas" the stage against
+    prepare_draw and against plan_run alone (the pass's host-side plan,
+    made anew every staging): ATen ops the host dispatches a call and
+    median ms on the host clock to a synchronise."""
+    import numpy as np
+    import torch
+
+    from dtrenderer_tpu_torch.ops import pipeline, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
+
+    dev = torch.device(DEVICE)
+
+    def sightings():
+        return (vertex_graph.EAGER, vertex_graph.CAPTURES,
+                vertex_graph.REPLAYS)
+
+    def plan(spec, sub, d):
+        return vertex_batch.plan_run(
+            [pipeline.DrawSpec(d.mesh, d.model, color=d.color,
+                               shading=d.shading)], sub.sampling_mode,
+            spec.width, spec.height, True, sub.near_clip, False, dev)
+
+    for spec, routes in ((cfg5p, ("pallas",)),
+                         (cfg4p, ("pallas", "ref", "scan"))):
+        sub = spec.submission(0.5)
+        for i, d in enumerate(sub.draws):
+            want_setup, want_attrs = prepare_draw_of(spec, sub, d)
+            for route in routes:
+                tag = f"staging vs prepare_draw {spec.name} draw {i} {route}"
+                reset_counts()  # sets vertex_graph.REPLAYS to 0
+                graph = sightings()
+                staged = stage_draw(spec, sub, d, route)
+                torch.cuda.synchronize()
+                got = read_counts()
+                if got != {"K1": 0, "K2": 0, "K3": 0, "VP": 1, "BN": 0,
+                           "DS": 0} or sightings() != graph:
+                    raise AssertionError(
+                        f"{tag}: launches {got}, vertex graph (eager, "
+                        f"captures, replays) {graph} -> {sightings()}")
+                n_nan = 0
+                for name, a, b in (
+                        ("coef", staged.setup.coef, want_setup.coef),
+                        ("bbox", staged.setup.bbox, want_setup.bbox),
+                        ("valid", staged.setup.valid, want_setup.valid),
+                        ("attrs10", staged.attrs10, want_attrs)):
+                    n_nan += same_bits_nan(f"{tag}: {name}", a, b)
+                rows = staged.setup.coef.shape[0]
+                if pipeline._attrs_rows(staged.attrs10, rows, dev) \
+                        is not staged.attrs10:
+                    raise AssertionError(f"{tag}: DS would copy attrs10")
+                print(f"{tag}: setup.coef, bbox, valid and attrs10 bit-equal "
+                      f"({rows} rows, {n_nan} NaN values at the same "
+                      f"places), VP 1 launch, vertex graph untouched, "
+                      f"attrs10 row stride {staged.attrs10.stride(0)} read "
+                      f"by DS in place")
+        ops = {name: sum(host_ops(lambda: fn(spec, sub, d))
+                         for d in sub.draws)
+               for name, fn in (("stage", stage_draw),
+                                ("prepare_draw", prepare_draw_of),
+                                ("plan_run", plan))}
+        ms = {name: [] for name in ops}
+        for name in ("stage", "prepare_draw", "plan_run", "plan_run",
+                     "prepare_draw", "stage"):
+            fn = {"stage": stage_draw, "prepare_draw": prepare_draw_of,
+                  "plan_run": plan}[name]
+            ms[name] += [timed(lambda: [fn(spec, sub, d)
+                                        for d in sub.draws])[1]
+                         for _ in range(reps // 2)]
+        med = {k: round(float(np.median(v)), 4) for k, v in ms.items()}
+        print(f"staging vs prepare_draw {spec.name} ({len(sub.draws)} "
+              f"draw(s) a frame): host ops a frame {json.dumps(ops)}; ms a "
+              f"frame, host clock to a synchronise (median of {reps}) "
+              f"{json.dumps(med)}; plan_run's share of the stage "
+              f"{med['plan_run'] / med['stage']:.2f} [{card}]")
+
+
+def same_bits_nan(tag, got, want) -> int:
+    """got and want equal bit for bit, a float NaN at the same places (any
+    NaN); returns the NaN values."""
+    import torch
+
+    a, b = got.contiguous(), want.contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tag}: {a.dtype} {tuple(a.shape)} vs "
+                             f"{b.dtype} {tuple(b.shape)}")
+    if a.dtype != torch.float32:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: differs at "
+                                 f"{int((a != b).sum())} elements")
+        return 0
+    nan = torch.isnan(b)
+    if not torch.equal(torch.isnan(a), nan):
+        raise AssertionError(f"{tag}: NaN at other places")
+    ai = torch.where(nan, 0, a.view(torch.int32))
+    bi = torch.where(nan, 0, b.view(torch.int32))
+    if not torch.equal(ai, bi):
+        raise AssertionError(f"{tag}: differs at {int((ai != bi).sum())} "
+                             f"elements")
+    return int(nan.sum())
 
 
 def stages_ordered(scene, card):
@@ -1177,8 +1338,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
 
     single = {}
     for backend, key in (("fused", "K1"), ("pallas", "K2")):
-        want = {"K1": 0, "K2": 0, "K3": 0, key: 2,
-                "VP": 2 if backend == "fused" else 0, "BN": 2,
+        want = {"K1": 0, "K2": 0, "K3": 0, key: 2, "VP": 2, "BN": 2,
                 "DS": 0 if backend == "fused" else 2}
         single[backend], times = counted(
             f"config 5 {backend} single launch", want, total,
@@ -1253,8 +1413,9 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
 
     got, times = counted(
         f"config 5 pallas, {rows} bands",
-        {"K1": 0, "K2": 2 * rows, "K3": 0, "VP": 0, "BN": 2 * rows,
-         "DS": 2 * rows}, total,
+        {"K1": 0, "K2": 2 * rows, "K3": 0,
+         "VP": 2 * len(mesh8.distinct()), "BN": 2 * rows, "DS": 2 * rows},
+        total,
         lambda: timed_frames(lambda: sharded5("pallas", None), 2))
     bits_equal(f"config 5 pallas, {rows} bands", got, single["pallas"])
     print(f"band paths: config 5 pallas, {rows} bands, per band binning: z "
@@ -1407,26 +1568,9 @@ def api_submission_fn(dev):
 def same_batch_nan(tag, got, want) -> int:
     """Two DrawBatches bit-equal, every row (f32 as int32 bit patterns; a
     NaN may be any NaN, at the same places). Returns the NaN count."""
-    import torch
-
-    n_nan = 0
-    for name, a, b in zip(("coef", "bbox", "valid", "payload", "tex_lut"),
-                          got, want):
-        if a.shape != b.shape or a.dtype != b.dtype:
-            raise AssertionError(f"{tag}: {name} {a.dtype} "
-                                 f"{tuple(a.shape)} against {b.dtype} "
-                                 f"{tuple(b.shape)}")
-        if a.dtype == torch.float32:
-            nan = torch.isnan(a)
-            if not torch.equal(nan, torch.isnan(b)):
-                raise AssertionError(f"{tag}: {name} NaN at other places")
-            n_nan += int(nan.sum())
-            a = torch.where(nan, 0, a.view(torch.int32))
-            b = torch.where(nan, 0, b.view(torch.int32))
-        if not torch.equal(a, b):
-            raise AssertionError(f"{tag}: {name} differs from the plain "
-                                 f"pass at {int((a != b).sum())} elements")
-    return n_nan
+    return sum(same_bits_nan(f"{tag}: {name} against the plain pass", a, b)
+               for name, a, b in zip(("coef", "bbox", "valid", "payload",
+                                      "tex_lut"), got, want))
 
 
 def vertex_kernel_vs_plain(card, cfg4, cfg5, sphere) -> dict:
@@ -1908,7 +2052,6 @@ def vertex_stage_graph(card, cfg4, cfg5, sphere):
 
     import numpy as np
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
 
     from bench_torch import scenes as bench_scenes
     from dtrenderer_tpu_torch.ops import fb as fblib, pipeline, vertex_batch
@@ -1930,22 +2073,6 @@ def vertex_stage_graph(card, cfg4, cfg5, sphere):
     def counts():
         return (vertex_graph.EAGER, vertex_graph.CAPTURES,
                 vertex_graph.REPLAYS)
-
-    class CountOps(TorchDispatchMode):
-        """The ATen operations the host dispatches inside it."""
-
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
-    def host_ops(fn):
-        with CountOps() as ops:
-            fn()
-        return ops.n
 
     reps = 20
     for name, w, h, submission in scenes:
@@ -2359,7 +2486,7 @@ def edge_cases_check() -> dict:
     got = read_counts()
     n_draws = sum(len(c.draws) for c in cases)
     want = {"K1": len(cases), "K2": n_draws, "K3": n_draws,
-            "VP": len(cases) + n_draws, "BN": len(cases) + 2 * n_draws,
+            "VP": len(cases) + 3 * n_draws, "BN": len(cases) + 2 * n_draws,
             "DS": 2 * n_draws}
     if not launches_ok(got, want):
         raise AssertionError(f"edge cases: kernel launches {got}, want {want}")
@@ -2577,9 +2704,9 @@ def main(argv=None) -> int:
         ("K1 path", [(cfg4, 3), (cfg5, 2)],
          {"K1": 5, "K2": 0, "K3": 0, "VP": 5, "BN": 5, "DS": 0}),
         ("K2 path config 5", [(cfg5p, 2)],
-         {"K1": 0, "K2": 2, "K3": 0, "VP": 0, "BN": 2, "DS": 2}),
+         {"K1": 0, "K2": 2, "K3": 0, "VP": 2, "BN": 2, "DS": 2}),
         ("K2 path config 4", [(cfg4p, 2)],
-         {"K1": 0, "K2": 8, "K3": 0, "VP": 0, "BN": 8, "DS": 8}),
+         {"K1": 0, "K2": 8, "K3": 0, "VP": 8, "BN": 8, "DS": 8}),
         ("K3 path", [(sphere, 3)],
          {"K1": 0, "K2": 0, "K3": 3, "VP": 3, "BN": 3, "DS": 0}),
         ("mixed path", [(mixed, 2)],
@@ -2603,6 +2730,7 @@ def main(argv=None) -> int:
     stages_fused(cfg5, card)
     stages_pallas(cfg4p, card)
     stages_pallas(cfg5p, card)
+    staging_vs_prepare_draw(card, cfg4p, cfg5p)
     stages_ordered(sphere, card)
     reference_check()
     draw2d_text_check()

@@ -21,7 +21,9 @@
 // shades with raster_common.cuh's shade(), K1's phase 2, through a row
 // adapter: channels 0-3 are the draw's constants (texture base 0, width,
 // height, flags), the rest read the triangle's q-premultiplied corner
-// attributes [3, 10] in place. The blend is blend_over's
+// attributes [3, 10] in place, at row t * attrs_stride (30 for a [T, 3, 10]
+// tensor of its own, 34 for the corner channels of a vertex pass's payload,
+// read without a copy). The blend is blend_over's
 // src + dst * (1 - src_a). The outputs are fresh planes: the framebuffer the
 // caller passed is never written.
 //
@@ -51,7 +53,7 @@ static_assert(kCornerStride == kAttrs,
 // constants, channel kCorner0 + c*kCornerStride + k = attrs[t, c, k].
 // shade() indexes with constants, so the branch folds away.
 struct DeferredRow {
-  const float* attrs;  // attrs[t], [3, kAttrs]
+  const float* attrs;  // the row of attrs[t], [3, kAttrs] contiguous
   float4 head;         // tex_base, tw, th, flags
   __device__ __forceinline__ float operator[](int i) const {
     if (i < kCorner0) {
@@ -72,8 +74,8 @@ shade_deferred_kernel(const float* __restrict__ z,
                       const float* __restrict__ scalars,
                       float4* __restrict__ out_color,
                       float* __restrict__ out_depth, float4 head,
-                      int tex_len, int height, int width, int y_offset,
-                      int x_offset) {
+                      int tex_len, int attrs_stride, int height, int width,
+                      int y_offset, int x_offset) {
   const size_t pix = static_cast<size_t>(blockIdx.x) * kBlock + threadIdx.x;
   if (pix >= static_cast<size_t>(height) * width) return;
   const float zp = z[pix];
@@ -101,8 +103,8 @@ shade_deferred_kernel(const float* __restrict__ z,
   const float b1 = e1 * c2.y;
   const float b2 = e2 * c2.y;
   const float4 src = shade(
-      DeferredRow{attrs + static_cast<size_t>(t) * 3 * kAttrs, head}, b0, b1,
-      b2, lut, tex_len, scalars);
+      DeferredRow{attrs + static_cast<size_t>(t) * attrs_stride, head}, b0,
+      b1, b2, lut, tex_len, scalars);
   const float keep = 1.0f - src.w;
   out_color[pix] = make_float4(src.x + dst.x * keep, src.y + dst.y * keep,
                                src.z + dst.z * keep, src.w + dst.w * keep);
@@ -114,14 +116,15 @@ shade_deferred_kernel(const float* __restrict__ z,
 // Plain C entry point (bound with ctypes by kernels/shade_deferred.py).
 // tex_lut is the draw's texture as texel-major float4 [tw * th]; scalars
 // the light (render_fused.light_scalars); flags as the payload's (bit 0
-// Phong, bit 1 bilinear). Launches on `stream`, allocates nothing, and
-// returns the launch status.
+// Phong, bit 1 bilinear); attrs_stride the floats from one triangle's
+// attribute row to the next (>= 3 * 10; a row's 30 channels contiguous).
+// Launches on `stream`, allocates nothing, and returns the launch status.
 extern "C" cudaError_t dtr_shade_deferred(
     const float* z, const int* tri, const float* depth, const float* color,
     const float* coef, const float* attrs, const float* tex_lut,
     const float* scalars, float* out_color, float* out_depth, float tw,
-    float th, float flags, int tex_len, int height, int width, int y_offset,
-    int x_offset, void* stream) {
+    float th, float flags, int tex_len, int attrs_stride, int height,
+    int width, int y_offset, int x_offset, void* stream) {
   const size_t n = static_cast<size_t>(height) * width;
   if (height <= 0 || width <= 0) return cudaSuccess;
   const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
@@ -130,7 +133,7 @@ extern "C" cudaError_t dtr_shade_deferred(
       z, tri, depth, reinterpret_cast<const float4*>(color), coef, attrs,
       reinterpret_cast<const float4*>(tex_lut), scalars,
       reinterpret_cast<float4*>(out_color), out_depth,
-      make_float4(0.0f, tw, th, flags), tex_len, height, width, y_offset,
-      x_offset);
+      make_float4(0.0f, tw, th, flags), tex_len, attrs_stride, height, width,
+      y_offset, x_offset);
   return cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """The 3D draw-call pipeline: vertex stage -> binning -> raster kernels ->
 depth merge and blend.
 
-Port of `dtrenderer_tpu/ops/pipeline.py`. A draw is eager torch for the
-vertex stage and the binning, then one kernel launch, then the merge:
+Port of `dtrenderer_tpu/ops/pipeline.py`. A draw is the vertex stage (the
+batched pass of ops/vertex_batch.py, on a CUDA device one launch of
+csrc/vertex_pass.cu, on every route), the binning, then one kernel launch,
+then the merge:
 
 - `draw_mesh(backend="fused")` and the opaque runs of `draw_meshes`: the
   fused raster+shade kernel (ops/render_fused.py), merged with
@@ -29,7 +31,10 @@ vertex stage, which no shard of the frame changes) and rastered per shard
 (`raster_staged`); parallel/shard.py stages once per device and rasters once
 per band. On a CUDA device a staged "fused" or "tile" draw holds graph
 memory (ops/vertex_graph.py): it is valid until the same draw is staged
-again, and raster_staged raises after that.
+again, and raster_staged raises after that. "pallas", "ref" and "scan"
+stage through the same pass, eager (vertex_batch.pack), and own what they
+stage. prepare_draw is the per-draw vertex stage in plain torch, the JAX
+package's counterpart, to which every route's staging is held bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ from dtrenderer_tpu_torch.ops.raster_ordered import render_ordered
 from dtrenderer_tpu_torch.ops.raster_pallas import rasterize_pallas
 from dtrenderer_tpu_torch.ops.raster_ref import rasterize_ref
 from dtrenderer_tpu_torch.ops.render_fused import (
-    TILE_H, TILE_W, light_scalars, pack_flags, render_fused,
+    CORNER_STRIDE, P_C0, TILE_H, TILE_W, light_scalars, pack_flags,
+    render_fused,
 )
 from dtrenderer_tpu_torch.ops.shading import (
     SHADING_FLAT, SHADING_GOURAUD, SHADING_NONE, SHADING_PHONG, Light,
@@ -409,18 +415,34 @@ def shade_deferred_plain(fb: Framebuffer, z, tri, coef, attrs, texture,
     return Framebuffer(color=color, depth=torch.where(win, z, fb.depth))
 
 
-def _kernel_plane(name: str, t, dtype, shape, device):
-    """A deferred kernel input checked and made contiguous and 16-byte
-    aligned (the kernel reads colour, setup rows and texels as float4; a
-    shard's planes may be strided views, a texture a view at an offset)."""
+def _check_plane(name: str, t, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"shade_deferred: {name} must be {dtype} "
                          f"{list(shape)}, got {t.dtype} {list(t.shape)}")
     if t.device != device:
         raise ValueError(f"shade_deferred: {name} is on {t.device}, the "
                          f"framebuffer on {device}")
+
+
+def _kernel_plane(name: str, t, dtype, shape, device):
+    """A deferred kernel input checked and made contiguous and 16-byte
+    aligned (the kernel reads colour, setup rows and texels as float4; a
+    shard's planes may be strided views, a texture a view at an offset)."""
+    _check_plane(name, t, dtype, shape, device)
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _attrs_rows(attrs, T: int, device):
+    """attrs [T, 3, 10] checked, as the kernel reads it: each row's 30
+    channels contiguous, rows at any stride of 30 or more (the corner
+    channels of a DrawBatch's payload, a view of row stride 34, are read in
+    place); any other layout is copied. Read as floats: no alignment."""
+    _check_plane("attrs", attrs, F32, (T, 3, CORNER_STRIDE), device)
+    if attrs.stride()[1:] == (CORNER_STRIDE, 1) and \
+            attrs.stride(0) >= 3 * CORNER_STRIDE:
+        return attrs
+    return attrs.contiguous()
 
 
 def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
@@ -429,8 +451,10 @@ def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
     """Deferred pass: shade the winning fragments of a visibility G-buffer
     (z [H, W] f32, tri [H, W] i32, -1 uncovered) and merge them into the
     framebuffer: a pixel wins where tri >= 0 and z < fb.depth. coef: the
-    setup rows [T, 16]; attrs: q-premultiplied corner attrs [T, 3, 10];
-    texture [th, tw, 4]. (y_offset, x_offset) is fb's origin in the frame
+    setup rows [T, 16]; attrs: q-premultiplied corner attrs [T, 3, 10] (the
+    kernel reads a view whose rows are 30 contiguous channels at any row
+    stride, such as StagedDraw.attrs10, without a copy); texture
+    [th, tw, 4]. (y_offset, x_offset) is fb's origin in the frame
     the rows were set up for. Returns a new Framebuffer; fb is not written.
 
     On a CPU tensor this is shade_deferred_plain. On a CUDA tensor it is one
@@ -460,7 +484,7 @@ def shade_deferred(fb: Framebuffer, z, tri, coef, attrs, texture,
         color=_kernel_plane("fb.color", fb.color, F32, (h, w, 4), device),
         coef=_kernel_plane("coef", coef, F32, (T, geometry.SETUP_CHANNELS),
                            device),
-        attrs=_kernel_plane("attrs", attrs, F32, (T, 3, 10), device),
+        attrs=_attrs_rows(attrs, T, device),
         tex_lut=_kernel_plane("texture", texture, F32, (th, tw, 4),
                               device).reshape(th * tw, 4))
     out = Framebuffer(color=torch.empty((h, w, 4), dtype=F32, device=device),
@@ -484,7 +508,9 @@ class StagedDraw(NamedTuple):
     """The vertex stage of one draw_mesh / draw_mesh_ordered call: what every
     shard of the frame shares. route "fused" and "tile" carry a packed
     DrawBatch; "pallas", "ref" and "scan" the setup, the corner attributes
-    and the texture that shade_deferred / the scan loop read.
+    and the texture that shade_deferred / the scan loop read: the setup
+    rows of an eager vertex_batch.pack and attrs10, a [T', 3, 10] view of
+    its payload's corner channels (row stride 34), equal to prepare_draw's.
 
     A DrawBatch that a CUDA graph's replay made (pack_draws) is that graph's
     memory: the next staging of the same submission (same meshes, textures,
@@ -511,12 +537,13 @@ def _stage(route, device, mesh, model, view_proj, frame_height, frame_width,
     _check_sampling(sampling_mode)
     if light is None:
         light = make_light(device=device)
+    mvps = None if mvp is None else [mvp]
     if route in ("fused", "tile"):
         spec = DrawSpec(mesh, model, texture=texture, color=color,
                         shading=shading, normal_mat=normal_mat)
         batch = pack_draws([spec], view_proj, light, sampling_mode,
                            frame_width, frame_height, cull_backfaces,
-                           near_clip, mvps=None if mvp is None else [mvp])
+                           near_clip, mvps=mvps)
         stamp = None
         if batch.coef.is_cuda:
             from dtrenderer_tpu_torch.ops import vertex_graph
@@ -524,15 +551,23 @@ def _stage(route, device, mesh, model, view_proj, frame_height, frame_width,
             stamp = vertex_graph.stamp(batch)
         return StagedDraw(route, light, batch.coef.shape[0], batch=batch,
                           stamp=stamp, **more)
-    if mvp is None:
-        mvp = mat4mul(view_proj, model)
-    setup, attrs10 = prepare_draw(
-        mesh, model, view_proj, mvp,
-        normal_mat if normal_mat is not None else model, light, color,
-        shading, frame_width, frame_height, cull_backfaces, near_clip)
+    # The batched pass, eager (on the card one launch of the vertex kernel,
+    # never a vertex graph): its setup rows and a view of its payload's
+    # corner channels are prepare_draw's setup and attrs10 bit for bit.
+    # shade_deferred reads the texture itself, so the spec carries none.
+    from dtrenderer_tpu_torch.ops import vertex_batch
+
+    spec = DrawSpec(mesh, model, color=color, shading=shading,
+                    normal_mat=normal_mat)
+    batch = vertex_batch.pack([spec], view_proj, light, sampling_mode,
+                              frame_width, frame_height, cull_backfaces,
+                              near_clip, mvps)
+    rows = batch.coef.shape[0]
+    setup = geometry.TriSetup(batch.coef, batch.bbox, batch.valid)
+    attrs10 = batch.payload[:, P_C0:].view(rows, 3, CORNER_STRIDE)
     if texture is None:
         texture = white_texture(device=device)
-    n = setup.coef.shape[0] if route == "scan" else mesh.faces.shape[0]
+    n = rows if route == "scan" else mesh.faces.shape[0]
     return StagedDraw(route, light, n, setup=setup, attrs10=attrs10,
                       texture=texture, sampling_mode=sampling_mode,
                       shading=shading, **more)
@@ -675,6 +710,11 @@ def draw_mesh(
     of a larger frame, pass the full frame dims (frame_height/frame_width)
     and this shard's origin (y_offset/x_offset).
 
+    Every backend stages through the batched vertex pass (on a CUDA device
+    one launch of csrc/vertex_pass.cu), which reads f32 mesh verts, uv and
+    normals and i64 or i32 faces: any other mesh raises ValueError, on
+    every backend; there is no fallback to another vertex stage.
+
     raster_opts (backend "fused"): row_bands=N renders the frame as N row
     bands, one launch each, bit-equal to the single launch; band_shared
     (default True) bins them through one shared table, False band by band;
@@ -735,6 +775,7 @@ def draw_mesh_ordered(
       "auto" -- "tile" (the port has no texture-size limit to route on).
 
     return_counters: also return FrameCounters (bin_overflow always 0).
+    The vertex stage, and the meshes it takes, are draw_mesh's.
     """
     h, w = fb.depth.shape
     staged = stage_draw_mesh_ordered(

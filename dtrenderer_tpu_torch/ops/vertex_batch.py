@@ -2,8 +2,10 @@
 
 `pipeline.pack_draws` gives a run of DrawSpecs (an opaque run of
 draw_meshes, or the one draw of draw_mesh "fused" and of draw_mesh_ordered
-"tile") to this module. The draws are not looped over: the vertex arrays of
-the draws that share a shading mode are concatenated, each draw's faces
+"tile") to this module; draw_mesh "pallas" and "ref" and draw_mesh_ordered
+"scan" stage their one draw through `pack`, the eager pass. The draws are
+not looped over: the vertex arrays of the draws that share a shading mode
+are concatenated, each draw's faces
 offset by its vertex base, and every per-draw value (mvp, normal and model
 matrix, colour, payload head) is a row indexed by each vertex's or
 triangle's draw. A run of one draw broadcasts its one row instead. Every
@@ -472,7 +474,8 @@ def pack(draws, view_proj, light: Light, sampling_mode: str, frame_w: int,
          mvps=None) -> DrawBatch:
     """The batched pass, eager: plan, frame vector and pass in one call, as
     pipeline.pack_draws takes them. It is what pack_draws runs on the CPU,
-    and the graph's first sighting of a key on the card."""
+    the graph's first sighting of a key on the card, and the vertex stage
+    of the "pallas", "ref" and "scan" routes (pipeline._stage)."""
     plan = plan_run(draws, sampling_mode, frame_w, frame_h, cull_backfaces,
                     near_clip, mvps is not None, light.direction.device)
     return run_pass(plan, frame_vector(plan, draws, view_proj, light, mvps),

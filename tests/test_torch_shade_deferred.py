@@ -5,7 +5,9 @@ Bars:
   * csrc/shade_deferred.cu itself, compiled for the host with g++ and a few
     shims (the launch's indices, run one pixel after another: a per-pixel
     kernel needs no barrier), equals shade_deferred_plain bit for bit (NaN
-    at the same places), with the framebuffer's depth seeded so that only
+    at the same places), with the attribute rows 30 floats apart (a tensor
+    of their own) and 34 (StagedDraw.attrs10, a view of the vertex pass's
+    payload), with the framebuffer's depth seeded so that only
     some covered pixels win (ties lose), over Gouraud, Phong and "none",
     nearest and bilinear, a textured draw and the white texture, shards at
     non-zero offsets, every case of models/edge_cases.py and the inputs of
@@ -16,8 +18,9 @@ Bars:
     (dtrenderer_tpu/ops/pipeline.py) on the same numpy inputs: depth bit
     for bit, colour within FMA-contraction noise;
   * nothing of the new modules imports JAX or the JAX package;
-  * on the card (`gpu`): DS against its twin on the same inputs, strided
-    shard planes and a texture view at an offset included, and fb
+  * on the card (`gpu`): DS against its twin on the same inputs, at both
+    attribute row strides, strided shard planes and a texture view at an
+    offset included, and fb
     untouched (python -m pytest --noconftest -m gpu
     tests/test_torch_shade_deferred.py).
 """
@@ -246,8 +249,8 @@ extern "C" void host_shade_deferred(
     const float* z, const int* tri, const float* depth, const float* color,
     const float* coef, const float* attrs, const float* tex_lut,
     const float* scalars, float* out_color, float* out_depth, float tw,
-    float th, float flags, int tex_len, int height, int width, int y_offset,
-    int x_offset) {
+    float th, float flags, int tex_len, int attrs_stride, int height,
+    int width, int y_offset, int x_offset) {
   const size_t n = static_cast<size_t>(height) * width;
   for (size_t b = 0; b * kBlock < n; ++b) {
     blockIdx.x = static_cast<unsigned>(b);
@@ -257,8 +260,8 @@ extern "C" void host_shade_deferred(
           z, tri, depth, reinterpret_cast<const float4*>(color), coef, attrs,
           reinterpret_cast<const float4*>(tex_lut), scalars,
           reinterpret_cast<float4*>(out_color), out_depth,
-          make_float4(0.0f, tw, th, flags), tex_len, height, width,
-          y_offset, x_offset);
+          make_float4(0.0f, tw, th, flags), tex_len, attrs_stride, height,
+          width, y_offset, x_offset);
     }
   }
 }
@@ -291,14 +294,17 @@ def host_kernel(tmp_path_factory):
     assert res.returncode == 0, res.stderr
     dll = ctypes.CDLL(str(lib))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.host_shade_deferred.argtypes = [p] * 10 + [f, f, f] + [i] * 5
+    dll.host_shade_deferred.argtypes = [p] * 10 + [f, f, f] + [i] * 6
 
     def run(fb, z, tri, coef, attrs, texture, sampling_mode, shading_mode,
             light, y_offset=0, x_offset=0):
+        """attrs is read at its own row stride (its rows' 30 channels
+        contiguous), as the wrapper hands it to the kernel."""
         h, w = fb.depth.shape
         th, tw = texture.shape[0], texture.shape[1]
-        ins = [t.contiguous() for t in (z, tri, fb.depth, fb.color, coef,
-                                        attrs)]
+        assert attrs.stride()[1:] == (10, 1) and attrs.stride(0) >= 30
+        ins = [t.contiguous() for t in (z, tri, fb.depth, fb.color, coef)]
+        ins.append(attrs)
         lut = texture.contiguous().reshape(th * tw, 4)
         scalars = prf.light_scalars(light)
         out = pfb.Framebuffer(torch.full((h, w, 4), 7.0),
@@ -308,16 +314,28 @@ def host_kernel(tmp_path_factory):
             out.color.data_ptr(), out.depth.data_ptr(), float(tw), float(th),
             prf.pack_flags(shading_mode == "phong",
                            sampling_mode == "bilinear"),
-            th * tw, h, w, y_offset, x_offset)
+            th * tw, attrs.stride(0), h, w, y_offset, x_offset)
         return out
 
     return run
 
 
+def with_row_stride(attrs, stride: int):
+    """attrs [T, 3, 10] as a view whose rows lie `stride` floats apart
+    (30: a tensor of its own; 34: the corner channels of a DrawBatch's
+    payload, as StagedDraw.attrs10 is); the floats between rows are NaN."""
+    T = attrs.shape[0]
+    buf = torch.full((T, stride), float("nan"), device=attrs.device)
+    buf[:, stride - 30:] = attrs.reshape(T, 30)
+    return buf.as_strided((T, 3, 10), (stride, 10, 1), stride - 30)
+
+
+@pytest.mark.parametrize("stride", [30, 34])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_the_kernel_source_on_the_host_equals_the_plain_pass(host_kernel,
-                                                             name):
+                                                             name, stride):
     for kw in CASES[name](CPU):
+        kw["attrs"] = with_row_stride(kw["attrs"], stride)
         before = [t.clone() for t in kw["fb"]]
         assert_same_fb(host_kernel(**kw), ppipe.shade_deferred_plain(**kw))
         assert all(torch.equal(a, b) for a, b in zip(before, kw["fb"]))
@@ -422,10 +440,12 @@ def _card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("stride", [30, 34])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_the_kernel_equals_its_twin_on_the_card(name):
+def test_the_kernel_equals_its_twin_on_the_card(name, stride):
     dev = _card()
     for kw in CASES[name](dev):
+        kw["attrs"] = with_row_stride(kw["attrs"], stride)
         before = [t.clone() for t in kw["fb"]]
         launches = ppipe.KERNEL_LAUNCHES
         got = ppipe.shade_deferred(**kw)
