@@ -33,6 +33,15 @@ Run from the root of a checkout. Phases, each of which raises on failure:
          colour max |diff| 0 against shade_deferred_plain; 20 wrapper
          calls against the plain twin and the launch loop, beside the
          bound by bytes;
+       K1 merge epilogue vs plain: render_fused(..., fb=...), the draw
+         call's path, against render_fused_plain(..., fb=...), the torch
+         merge, over a seeded framebuffer (depth +inf, ties, uniform,
+         NaN) at config 5, config 4 and config 5 in 8 row bands of the
+         shared table writing one pair of planes: depth bit-equal, colour
+         max |diff| 0 (NaN at the same places), winners counted equal,
+         the framebuffer unwritten; at config 5 and 4 the merging wrapper
+         against the twin, K1's launch loop with and without the merge,
+         the torch merge alone, the bound with the framebuffer's bytes;
      each kernel is also timed, twice, as 200 back-to-back launches of its
      ctypes entry on preallocated outputs between two CUDA events
      ("launch loop"): the 20-70 us kernels (K3, K1 and K2 at config 4) are
@@ -43,7 +52,7 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      and K2 bit-equal to their twins at shapes the scenes do not reach: a
      tile of more than 512 triangles, grids of shared edges through pixel
      centres and along sub-block borders, each as a whole frame and as
-     ragged shards at non-zero offsets;
+     ragged shards at non-zero offsets (K1 also with its merge);
   4. main paths through the public entry points, each with every kernel's
      launch count set to 0 just before and read just after (VP: at least
      once per pack_draws call on "fused" and "tile", counted by
@@ -145,9 +154,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      counted under torch.cuda.set_sync_debug_mode("warn"): 1 (the plain
      path's beside it);
   7. stage breakdown of one frame per path (vertex stage + packing,
-     binning, kernel, merge or deferred shading; on "pallas" the vertex
-     stage is stage_draw_mesh, with prepare_draw timed beside it), after
-     the counted windows; and the API frame's verbs one by one (best of
+     binning, kernel, merge or deferred shading; on "fused" K1 and the
+     torch merge apart, as the bench splits them, and K1 with the merge
+     beside them; on "pallas" the vertex stage is stage_draw_mesh, with
+     prepare_draw timed beside it), after the counted windows; config 5's
+     device operations a steady frame with the merge in K1 and with the
+     torch merge it replaced; and the API frame's verbs one by one (best of
      three); then staging vs prepare_draw: the vertex stage of "pallas",
      "ref" and "scan" (one VP launch, no vertex graph sighting) against
      prepare_draw on the card at config 5 ("pallas") and config 4's four
@@ -433,12 +445,27 @@ def mixed_config4(spec4):
 # ------------------------------------------------------- kernel vs twin
 
 
+def k1_ops(batch, bins, height, width, shaded=None):
+    """float32 operations K1 must do on these inputs: the edge functions of
+    every binned pair's pixels in its bbox, barycentrics and z of every
+    covered pixel, and the shading of the pixels in `shaded` (bool [H, W];
+    every covered pixel when None), by their winners' flags (K2's twin
+    gives the winners)."""
+    from dtrenderer_tpu_torch.ops import raster_pallas as rp
+
+    _, tri = rp.rasterize_pallas_plain(batch.coef, bins, height, width)
+    covered = tri >= 0
+    shaded = covered if shaded is None else shaded & covered
+    return (edge_pixels(batch.bbox, bins, width) * EDGE_OPS
+            + int(covered.sum()) * BARY_Z_OPS
+            + shade_ops(batch.payload[tri[shaded].long(), 3]))
+
+
 def k1_vs_plain(spec, card):
     """K1 for one scene: (max_abs_err, kernel ms, plain ms, bound, share of
     surviving coarse bits, the two launch-loop readings)."""
     import torch
 
-    from dtrenderer_tpu_torch.ops import raster_pallas as rp
     from dtrenderer_tpu_torch.ops import render_fused as rf
 
     sub, batch = pack_submission(spec)
@@ -453,12 +480,7 @@ def k1_vs_plain(spec, card):
                   src_p)
     k_ms, p_ms, r = interleaved_ms(lambda: rf.render_fused(*args),
                                    lambda: rf.render_fused_plain(*args), 20)
-    # the winners' flags decide the shading work (K2 gives the winners)
-    _, tri = rp.rasterize_pallas_plain(batch.coef, bins, spec.height,
-                                       spec.width)
-    ops = (edge_pixels(batch.bbox, bins, spec.width) * EDGE_OPS
-           + int((tri >= 0).sum()) * BARY_Z_OPS
-           + shade_ops(batch.payload[tri[tri >= 0].long(), 3]))
+    ops = k1_ops(batch, bins, spec.height, spec.width)
     n_bytes = nbytes(batch.coef, batch.payload, bins.tile_start,
                      bins.tri_ids, batch.tex_lut, z_k, src_k)
     b = bound(n_bytes, ops)
@@ -687,13 +709,185 @@ def ds_vs_plain(spec, card):
     return err, k_ms, p_ms, b, tuple(loop)
 
 
+# K1's merge epilogue (render_fused with a framebuffer, the draw call's
+# path): per pixel the framebuffer's colour and depth read and the merged
+# pair written in place of z and src; per winning pixel one blend
+# (BLEND_OPS).
+FB_PIXEL_BYTES = 16 + 4
+
+
+def seeded_fb(z, seed: int):
+    """A framebuffer over z's frame, on z's card, over which some covered
+    pixels win and some lose: depth +inf (a covered pixel wins), z itself
+    (a tie: it loses), uniform in [0, 1) or NaN (never wins); colour
+    uniform in [0, 1)."""
+    import torch
+
+    from dtrenderer_tpu_torch.ops.fb import Framebuffer
+
+    g = torch.Generator(device=z.device).manual_seed(seed)
+    u = torch.rand(z.shape, generator=g, device=z.device)
+    other = torch.rand(z.shape, generator=g, device=z.device)
+    depth = torch.where(u < 0.4, float("inf"), torch.where(
+        u < 0.6, z, torch.where(u < 0.95, other, float("nan"))))
+    color = torch.rand((*z.shape, 4), generator=g, device=z.device)
+    return Framebuffer(color, depth)
+
+
+def same_fb(tag, got, want):
+    """Depth and colour bit-equal, NaN at the same places; returns the max
+    |colour diff| over the other channels (0)."""
+    same_bits_nan(f"{tag} depth", got.depth, want.depth)
+    same_bits_nan(f"{tag} colour", got.color, want.color)
+    return float((got.color - want.color).nan_to_num().abs().max())
+
+
+def k1_merge_vs_plain(spec, card, rows: int = 1):
+    """K1's merging entry (render_fused(..., fb=...), the draw call's path)
+    against its twin (render_fused_plain(..., fb=...), the torch merge) on
+    one scene's frame over a seeded framebuffer, whole (rows 1) or in `rows`
+    row bands of the shared table, each band's launch writing its rows of
+    one pair of planes as pipeline._render_banded does: depth and colour
+    bit-equal (NaN at the same places), winners counted equal, the
+    framebuffer unwritten. With rows 1 also timed: the merging wrapper
+    against the twin, K1's launch loop with and without the merge, the
+    torch merge alone over K1's (z, src); and the bound. Returns (max
+    |colour diff|, wrapper ms, plain ms, bound, winners, torch merge ms,
+    launch loop without the merge, launch loop with it)."""
+    import torch
+
+    from dtrenderer_tpu_torch.kernels import render_fused as k1
+    from dtrenderer_tpu_torch.ops import binning
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+    from dtrenderer_tpu_torch.ops.fb import Framebuffer
+
+    dev = torch.device(DEVICE)
+    h, w = spec.height, spec.width
+    bh = h // rows
+    sub, batch = pack_submission(spec)
+    all_bins = ([bin_batch(batch, h, w)] if rows == 1 else binning.bin_bands(
+        batch.coef, batch.bbox, batch.valid, h, w, rows, 0, 0, rf.TILE_H,
+        rf.TILE_W))
+
+    def band_args(i, b):
+        return (batch.coef, batch.payload, b, batch.tex_lut, sub.light, bh, w,
+                i * bh, 0)
+
+    z = torch.cat([rf.render_fused(*band_args(i, b))[0]
+                   for i, b in enumerate(all_bins)])
+    fb = seeded_fb(z, 5)
+    before = [t.clone() for t in fb]
+
+    def merged(fn):
+        out = Framebuffer(torch.empty_like(fb.color),
+                          torch.empty_like(fb.depth))
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        for i, b in enumerate(all_bins):
+            ys = slice(i * bh, (i + 1) * bh)
+            _, _, n = fn(*band_args(i, b),
+                         fb=Framebuffer(fb.color[ys], fb.depth[ys]),
+                         out=(out.color[ys], out.depth[ys]),
+                         count_shaded=True)
+            count += n
+        return out, int(count)
+
+    got, n_k = merged(rf.render_fused)
+    want, n_p = merged(rf.render_fused_plain)
+    torch.cuda.synchronize()
+    tag = f"K1 merge {spec.name}" + (f" in {rows} bands" if rows > 1 else "")
+    err = same_fb(tag, got, want)
+    win = z < fb.depth
+    if not (n_k == n_p == int(win.sum()) > 0):
+        raise AssertionError(f"{tag}: winners {n_k} (kernel), {n_p} "
+                             f"(plain), {int(win.sum())} (z < depth)")
+    for a, b in zip(before, fb):
+        same_bits_nan(f"{tag}: the framebuffer", b, a)
+    print(f"{tag}: depth bit-equal, colour max |diff| {err:.3g} (NaN at the "
+          f"same places), winners {n_k} = plain = (z < depth).sum(), of "
+          f"{int(torch.isfinite(z).sum())} covered px, framebuffer unwritten"
+          f" [{card}]")
+    if rows > 1:
+        return err
+    bins = all_bins[0]
+    args = band_args(0, bins)
+    k_ms, p_ms, r = interleaved_ms(
+        lambda: rf.render_fused(*args, fb=fb, count_shaded=True),
+        lambda: rf.render_fused_plain(*args, fb=fb, count_shaded=True), 20)
+    scal = rf.light_scalars(sub.light)
+    kin = (batch.coef, batch.payload, bins.tile_start, bins.tri_ids,
+           batch.tex_lut, scal)
+    zs, srcs = torch.empty_like(fb.depth), torch.empty_like(fb.color)
+    out = Framebuffer(torch.empty_like(fb.color), torch.empty_like(fb.depth))
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    loop_plain = launch_loop_ms(lambda: k1.launch(*kin, zs, srcs, h, w, 0, 0))
+    loop_merge = launch_loop_ms(lambda: k1.launch(
+        *kin, None, None, h, w, 0, 0, fb_color=fb.color, fb_depth=fb.depth,
+        out_color=out.color, out_depth=out.depth, shaded=count))
+    z_k, src_k, _ = rf.render_fused(*args)
+    t_merge = (cuda_ms(lambda: rf.merge_plain(fb, z_k, src_k, None, True),
+                       20),
+               cuda_ms(lambda: rf.merge_plain(fb, z_k, src_k, None, True),
+                       20))
+    ops = k1_ops(batch, bins, h, w, shaded=win) + n_k * BLEND_OPS
+    n_bytes = (nbytes(batch.coef, batch.payload, bins.tile_start,
+                      bins.tri_ids, batch.tex_lut)
+               + 2 * h * w * FB_PIXEL_BYTES)
+    b = bound(n_bytes, ops)
+    print(f"{tag}: merging wrapper {k_ms:.4f} ms ({r[1]:.4f}, {r[2]:.4f}), "
+          f"plain twin {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}); launch loop "
+          f"with the merge {loop_merge[0]:.4f}, {loop_merge[1]:.4f} ms, "
+          f"without {loop_plain[0]:.4f}, {loop_plain[1]:.4f} ms; the torch "
+          f"merge alone {t_merge[0]:.4f}, {t_merge[1]:.4f} ms; bound "
+          f"{b[0]:.4f} ms by {b[1]} ({n_bytes} bytes, {ops} f32 ops) "
+          f"[{card}]")
+    return err, k_ms, p_ms, b, n_k, min(t_merge), loop_plain, loop_merge
+
+
+def merge_device_ops(spec, card) -> dict:
+    """Device operations of one steady frame of a scene on "fused"
+    (spec.frame: the vertex stage's replay, binning, K1, the clear), with
+    the merge in K1's epilogue and with the draw call's torch merge it
+    replaced (pipeline.render_fused swapped for K1 without a framebuffer
+    and its plain merge); torch.profiler, after two warm-up frames each.
+    Returns {before, after: (ops, device us)}."""
+    import torch
+    from unittest import mock
+
+    from dtrenderer_tpu_torch.ops import fb as fblib, pipeline
+    from dtrenderer_tpu_torch.ops import render_fused as rf
+
+    fb0 = fblib.create(spec.height, spec.width, torch.device(DEVICE))
+
+    def before_merge(*args, fb=None, out=None, count_shaded=False):
+        z, src, overflow = rf.render_fused(*args)
+        merged, n = rf.merge_plain(fb, z, src, out, count_shaded)
+        return merged, overflow, n
+
+    def frame():
+        spec.frame(fb0.color, fb0.depth, 0.5)
+
+    res = {}
+    for name, patch in (("before", before_merge), ("after", None)):
+        with mock.patch.object(pipeline, "render_fused",
+                               patch or rf.render_fused):
+            for _ in range(2):
+                frame()
+            ops = device_ops(frame)
+        res[name] = (len(ops), sum(us for _, us in ops))
+        print(f"{spec.name} device ops a frame, {name} the merge moved into "
+              f"K1: {len(ops)} ops, {res[name][1]:.1f} us: "
+              f"{short_ops(ops)} [{card}]")
+    return res
+
+
 def stress_vs_plain():
     """K1 and K2 against their plain twins, bit for bit, at shapes the
     scenes do not reach (models/stress.py): a tile of more than 512
     triangles (three staging chunks of the walk), grids whose shared edges
     run through pixel centres and along sub-block borders, each as a whole
     frame and as two shards whose size is no multiple of the tile or the
-    sub-block, at non-zero offsets."""
+    sub-block, at non-zero offsets; K1 with and without its merge (over a
+    seeded framebuffer, winners counted)."""
     import torch
 
     from dtrenderer_tpu_torch.models import stress
@@ -731,8 +925,17 @@ def stress_vs_plain():
             covered = int((t2 >= 0).sum())
             if covered <= 100:
                 raise AssertionError(f"{where}: only {covered} px covered")
+            fb = seeded_fb(z1p, 3)
+            got, _, n = rf.render_fused(*args, fb=fb, count_shaded=True)
+            want, _, n_p = rf.render_fused_plain(*args, fb=fb,
+                                                 count_shaded=True)
+            same_fb(f"{where}: K1 merge", got, want)
+            if int(n) != int(n_p):
+                raise AssertionError(f"{where}: K1 merge winners {int(n)}, "
+                                     f"plain {int(n_p)}")
             print(f"{where}: K1 and K2 bit-equal to their plain twins, "
-                  f"deepest bin {deepest}, covered px {covered}")
+                  f"deepest bin {deepest}, covered px {covered}; K1's merge "
+                  f"too, {int(n)} winners")
 
 
 # ------------------------------------------------------------- main paths
@@ -1027,25 +1230,25 @@ def timed(fn):
 
 
 def stages_fused(spec, card):
-    """One fused frame's stages (vertex stage + packing, binning, K1,
-    merge), host clock up to a synchronise."""
+    """One fused frame's stages (vertex stage + packing, binning, K1 and the
+    torch merge, as the bench splits them), host clock up to a synchronise;
+    beside them K1 with the merge in its epilogue, the draw call's path."""
     import torch
 
     from dtrenderer_tpu_torch.ops import fb as fblib
     from dtrenderer_tpu_torch.ops import render_fused as rf
-    from dtrenderer_tpu_torch.utils.color import blend_over
 
     fb = fblib.create(spec.height, spec.width, torch.device(DEVICE))
     (sub, batch), t_vert = timed(lambda: pack_submission(spec))
     bins, t_bin = timed(lambda: bin_batch(batch, spec.height, spec.width))
-    (z, src, _), t_k = timed(lambda: rf.render_fused(
-        batch.coef, batch.payload, bins, batch.tex_lut, sub.light,
-        spec.height, spec.width))
-    _, t_merge = timed(lambda: (torch.where(
-        (z < fb.depth)[..., None], blend_over(src, fb.color), fb.color),
-        torch.where(z < fb.depth, z, fb.depth)))
+    args = (batch.coef, batch.payload, bins, batch.tex_lut, sub.light,
+            spec.height, spec.width)
+    (z, src, _), t_k = timed(lambda: rf.render_fused(*args))
+    _, t_merge = timed(lambda: rf.merge_plain(fb, z, src))
+    _, t_km = timed(lambda: rf.render_fused(*args, fb=fb))
     print(f"{spec.name} fused stages (ms): vertex+pack {t_vert:.3f}, binning "
-          f"{t_bin:.3f}, render_fused {t_k:.3f}, merge {t_merge:.3f} [{card}]")
+          f"{t_bin:.3f}, render_fused {t_k:.3f}, merge {t_merge:.3f}; "
+          f"render_fused with the merge {t_km:.3f} [{card}]")
 
 
 def stage_draw(spec, sub, d, route="pallas"):
@@ -2697,6 +2900,9 @@ def main(argv=None) -> int:
     k3 = k3_vs_plain(sphere, card)
     ds_5 = ds_vs_plain(cfg5p, card)
     ds_4 = ds_vs_plain(cfg4p, card)
+    k1m_5 = k1_merge_vs_plain(cfg5, card)
+    k1m_4 = k1_merge_vs_plain(cfg4, card)
+    k1m_8 = k1_merge_vs_plain(cfg5, card, rows=8)
     stress_vs_plain()
 
     launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0}
@@ -2728,6 +2934,7 @@ def main(argv=None) -> int:
 
     stages_fused(cfg4, card)
     stages_fused(cfg5, card)
+    merge_ops = merge_device_ops(cfg5, card)
     stages_pallas(cfg4p, card)
     stages_pallas(cfg5p, card)
     staging_vs_prepare_draw(card, cfg4p, cfg5p)
@@ -2747,12 +2954,28 @@ def main(argv=None) -> int:
                 "library_ms": None, "launch_loop_ms": list(res[-1]), **extra}
 
     report = {"kernels": [
+        # the draw call's path: the merging entry (config 5); without the
+        # merge ("no_merge") as the bench's stages and the band phase run it
         entry("render_fused", "render_fused.cu",
               "dtrenderer_tpu/ops/render_fused.py:269", "K1",
-              (max(k1_4[0], k1_5[0]), *k1_5[1:]),
-              ms_config4_1080p=k1_4[1], plain_ms_config4_1080p=k1_4[2],
-              bound_ms_config4_1080p=k1_4[3][0],
-              launch_loop_ms_config4_1080p=list(k1_4[5]),
+              (max(k1_4[0], k1_5[0], k1m_4[0], k1m_5[0], k1m_8),
+               *k1m_5[1:4], k1m_5[7]),
+              ms_config4_1080p=k1m_4[1], plain_ms_config4_1080p=k1m_4[2],
+              bound_ms_config4_1080p=k1m_4[3][0],
+              launch_loop_ms_config4_1080p=list(k1m_4[7]),
+              winners=k1m_5[4], winners_config4_1080p=k1m_4[4],
+              torch_merge_ms=k1m_5[5], torch_merge_ms_config4_1080p=k1m_4[5],
+              ms_no_merge=k1_5[1], plain_ms_no_merge=k1_5[2],
+              bound_ms_no_merge=k1_5[3][0],
+              launch_loop_ms_no_merge=list(k1m_5[6]),
+              ms_no_merge_config4_1080p=k1_4[1],
+              plain_ms_no_merge_config4_1080p=k1_4[2],
+              bound_ms_no_merge_config4_1080p=k1_4[3][0],
+              launch_loop_ms_no_merge_config4_1080p=list(k1m_4[6]),
+              device_ops_frame=merge_ops["after"][0],
+              device_us_frame=merge_ops["after"][1],
+              device_ops_frame_torch_merge=merge_ops["before"][0],
+              device_us_frame_torch_merge=merge_ops["before"][1],
               surviving_bits=k1_5[4], surviving_bits_config4_1080p=k1_4[4]),
         entry("raster_visibility", "raster_visibility.cu",
               "dtrenderer_tpu/ops/raster_pallas.py:36", "K2",

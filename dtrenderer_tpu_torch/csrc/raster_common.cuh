@@ -67,7 +67,8 @@
 // triangles at once (fewer tests but divergent loops: 0.49 ms).
 //
 // ptxas (sm_90a, CUDA 12.9, -Xptxas -v): render_fused_kernel 32 registers,
-// 44 bytes of spill stores and 52 of spill loads; raster_visibility_kernel
+// 68 bytes of spill stores and 76 of spill loads with its merge epilogue
+// (44 and 52 without it); raster_visibility_kernel
 // 32 registers, 16 and 24 bytes (both capped by kWalkBlocksPerSM; without
 // the cap 48 registers each and no spills; the walk they replace: 38 and 32
 // registers, no spills). render_ordered_kernel, untouched: 40, no spills.
@@ -357,6 +358,16 @@ __device__ __forceinline__ float4 shade(const Row& p, float b0, float b1,
     src.z *= term;
   }
   return src;
+}
+
+// Premultiplied source-over in utils/color.blend_over's op order,
+// src + dst * (1 - src.a) per channel: the merge of K1's epilogue and of the
+// deferred shading kernel.
+__device__ __forceinline__ float4 blend_over(const float4& src,
+                                             const float4& dst) {
+  const float keep = 1.0f - src.w;
+  return make_float4(src.x + dst.x * keep, src.y + dst.y * keep,
+                     src.z + dst.z * keep, src.w + dst.w * keep);
 }
 
 }  // namespace dtr

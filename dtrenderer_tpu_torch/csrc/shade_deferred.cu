@@ -23,9 +23,9 @@
 // height, flags), the rest read the triangle's q-premultiplied corner
 // attributes [3, 10] in place, at row t * attrs_stride (30 for a [T, 3, 10]
 // tensor of its own, 34 for the corner channels of a vertex pass's payload,
-// read without a copy). The blend is blend_over's
-// src + dst * (1 - src_a). The outputs are fresh planes: the framebuffer the
-// caller passed is never written.
+// read without a copy). The blend is raster_common.cuh's blend_over
+// (src + dst * (1 - src_a), as K1's merge). The outputs are fresh planes:
+// the framebuffer the caller passed is never written.
 //
 // What bounds it on the card: bytes. Per pixel 28 bytes in (z, tri, depth,
 // colour) and 20 out; per winning triangle its 48 setup bytes and the
@@ -105,9 +105,7 @@ shade_deferred_kernel(const float* __restrict__ z,
   const float4 src = shade(
       DeferredRow{attrs + static_cast<size_t>(t) * attrs_stride, head}, b0,
       b1, b2, lut, tex_len, scalars);
-  const float keep = 1.0f - src.w;
-  out_color[pix] = make_float4(src.x + dst.x * keep, src.y + dst.y * keep,
-                               src.z + dst.z * keep, src.w + dst.w * keep);
+  out_color[pix] = blend_over(src, dst);
   out_depth[pix] = zp;
 }
 

@@ -7,8 +7,10 @@ csrc/vertex_pass.cu, on every route), the binning, then one kernel launch,
 then the merge:
 
 - `draw_mesh(backend="fused")` and the opaque runs of `draw_meshes`: the
-  fused raster+shade kernel (ops/render_fused.py), merged with
-  `win = z < fb.depth; color = where(win, blend_over(src, color), color)`;
+  fused raster+shade kernel (ops/render_fused.py), which merges into the
+  framebuffer in the same launch (`win = z < fb.depth; color = where(win,
+  blend_over(src, color), color)`; a banded frame's launches each write
+  their rows of one pair of planes);
 - `draw_mesh(backend="pallas")`: the visibility kernel
   (ops/raster_pallas.py), then `shade_deferred` (on a CUDA device one
   launch of the deferred shading kernel, csrc/shade_deferred.cu);
@@ -278,28 +280,24 @@ def pack_draws(draws, view_proj, light: Light, sampling_mode: str,
 
 def _render_and_merge(fb: Framebuffer, batch: DrawBatch, light: Light,
                       y_offset: int, x_offset: int, return_counters: bool,
-                      bins: Bins | None = None):
-    """Bin (unless the caller brings this shard's Bins), launch the fused
-    kernel once, and merge into the framebuffer."""
+                      bins: Bins | None = None, out=None):
+    """Bin (unless the caller brings this shard's Bins) and launch the fused
+    kernel once, which merges into the framebuffer: into `out`, a (colour,
+    depth) pair of planes, when given, else into fresh ones."""
     h, w = fb.depth.shape
     if bins is None:
         bins = bin_triangles(batch.coef, batch.bbox, batch.valid, h, w,
                              y_offset, x_offset, TILE_H, TILE_W)
-    z, src, overflow = render_fused(batch.coef, batch.payload, bins,
-                                    batch.tex_lut, light, h, w, y_offset,
-                                    x_offset)
-    win = z < fb.depth
-    out = Framebuffer(
-        color=torch.where(win[..., None], blend_over(src, fb.color), fb.color),
-        depth=torch.where(win, z, fb.depth),
-    )
+    merged, overflow, shaded = render_fused(
+        batch.coef, batch.payload, bins, batch.tex_lut, light, h, w,
+        y_offset, x_offset, fb=fb, out=out, count_shaded=return_counters)
     if not return_counters:
-        return out
-    return out, FrameCounters(
+        return merged
+    return merged, FrameCounters(
         tris_submitted=torch.tensor(batch.coef.shape[0], dtype=torch.int32,
                                     device=batch.coef.device),
         tris_valid=batch.valid.sum(dtype=torch.int32),
-        pixels_shaded=win.sum(dtype=torch.int32),
+        pixels_shaded=shaded,
         bin_overflow=overflow,
     )
 
@@ -360,18 +358,22 @@ def _render_banded(fb: Framebuffer, batch: DrawBatch, light: Light,
     band_h = h // n
     all_bins = bin_bands(coef, bbox, valid, h, w, n, y_offset, x_offset,
                          TILE_H, TILE_W, bands.shared, bands.distributed)
-    outs = []
+    # one frame's planes; each band's launch writes its rows
+    out = Framebuffer(
+        color=torch.empty((h, w, 4), dtype=F32, device=fb.depth.device),
+        depth=torch.empty((h, w), dtype=F32, device=fb.depth.device))
+    counters = []
     for b, bins in enumerate(all_bins):
         rows = slice(b * band_h, (b + 1) * band_h)
-        outs.append(_render_and_merge(
+        res = _render_and_merge(
             Framebuffer(fb.color[rows], fb.depth[rows]), batch, light,
-            y_offset + b * band_h, x_offset, return_counters, bins))
-    fbs = [o[0] for o in outs] if return_counters else outs
-    out = Framebuffer(color=torch.cat([f.color for f in fbs]),
-                      depth=torch.cat([f.depth for f in fbs]))
+            y_offset + b * band_h, x_offset, return_counters, bins,
+            out=(out.color[rows], out.depth[rows]))
+        if return_counters:
+            counters.append(res[1])
     if not return_counters:
         return out
-    return out, merge_band_counters([o[1] for o in outs])
+    return out, merge_band_counters(counters)
 
 
 def _shade_fragments(ip, texture, sampling_mode: str, shading: str,

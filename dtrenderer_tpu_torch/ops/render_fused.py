@@ -4,7 +4,8 @@ Port of `dtrenderer_tpu/ops/render_fused.py`. On a CUDA tensor `render_fused`
 launches the hand-written kernel `csrc/render_fused.cu` (one launch per call)
 and counts it in `KERNEL_LAUNCHES`; on a CPU tensor it runs
 `render_fused_plain`, the same function in plain torch. There is no fallback
-between the two: any other device raises.
+between the two: any other device raises. Given a framebuffer, the same
+launch also does the draw call's depth merge into fresh planes.
 
 Payload: the full 34-channel layout of the reference (`FULL_LAYOUT`), per
 triangle:
@@ -24,10 +25,12 @@ from __future__ import annotations
 import torch
 
 from dtrenderer_tpu_torch.ops.binning import Bins, window_ids
+from dtrenderer_tpu_torch.ops.fb import Framebuffer
 from dtrenderer_tpu_torch.ops.geometry import (
     SETUP_CHANNELS, coverage_and_depth, interp as bary_interp,
 )
 from dtrenderer_tpu_torch.ops.shading import Light, sqrt_exact
+from dtrenderer_tpu_torch.utils.color import blend_over
 from dtrenderer_tpu_torch.utils.math3d import to_i32
 
 F32 = torch.float32
@@ -164,35 +167,87 @@ def light_scalars(light: Light):
                       light.ambient.reshape(1).to(F32)])
 
 
+def _check_merge(fb, out, count_shaded: bool, height: int, width: int):
+    """The framebuffer planes of a merging call: f32 colour [H, W, 4] and
+    depth [H, W]; `out` and `count_shaded` only with a framebuffer."""
+    if fb is None:
+        if out is not None or count_shaded:
+            raise ValueError("out and count_shaded need a framebuffer (fb)")
+        return
+    pairs = [("fb", fb)] + ([] if out is None else [("out", tuple(out))])
+    for name, (color, depth) in pairs:
+        if color.dtype != F32 or tuple(color.shape) != (height, width, 4) \
+                or depth.dtype != F32 or tuple(depth.shape) != (height, width):
+            raise ValueError(
+                f"{name} must be f32 colour [{height}, {width}, 4] and depth "
+                f"[{height}, {width}], got {color.dtype} "
+                f"{list(color.shape)} and {depth.dtype} {list(depth.shape)}")
+
+
 def render_fused(coef, payload, bins: Bins, tex_lut, light: Light,
                  height: int, width: int, y_offset: int = 0,
-                 x_offset: int = 0):
-    """Fused visibility + shading of every binned triangle.
+                 x_offset: int = 0, *, fb: Framebuffer | None = None,
+                 out=None, count_shaded: bool = False):
+    """Fused visibility + shading of every binned triangle. (y_offset,
+    x_offset) is this [height, width] shard's origin in the frame the coefs
+    were set up for.
 
-    Returns (z [H,W] f32, +inf where uncovered; src [H,W,4] premultiplied
-    f32, 0 where uncovered; overflow i32 scalar). The caller merges into a
-    framebuffer: win = z < fb.depth; color = where(win, blend_over(src,
-    fb.color), fb.color). (y_offset, x_offset) is this [height, width]
-    shard's origin in the frame the coefs were set up for.
+    Without `fb`: returns (z [H,W] f32, +inf where uncovered; src [H,W,4]
+    premultiplied f32, 0 where uncovered; overflow i32 scalar).
+
+    With `fb`, the shard's framebuffer, the same launch merges into it, as
+    win = z < fb.depth; color = where(win, blend_over(src, fb.color),
+    fb.color); depth = where(win, z, fb.depth), and returns (Framebuffer,
+    overflow, shaded): the merged planes, written into `out` (a (colour,
+    depth) pair of contiguous planes, e.g. row views of a larger frame,
+    not overlapping fb) when given, else into fresh ones; fb is not
+    written. shaded: the winning pixels, i32 scalar, with count_shaded;
+    else None.
     """
     global KERNEL_LAUNCHES
-    check_inputs(coef, bins, height, width, payload, tex_lut, light)
+    _check_merge(fb, out, count_shaded, height, width)
+    planes = {} if fb is None else dict(fb_color=fb.color, fb_depth=fb.depth)
+    if out is not None:
+        planes.update(out_color=out[0], out_depth=out[1])
+    check_inputs(coef, bins, height, width, payload, tex_lut, light, **planes)
     if not kernel_device("render_fused", coef, bins, height):
         return render_fused_plain(coef, payload, bins, tex_lut, light,
-                                  height, width, y_offset, x_offset)
+                                  height, width, y_offset, x_offset, fb=fb,
+                                  out=out, count_shaded=count_shaded)
     from dtrenderer_tpu_torch.kernels import render_fused as k1
 
+    device = coef.device
     coef = coef.contiguous()
     tex_lut = tex_lut.contiguous()
     require_aligned(coef=coef, tex_lut=tex_lut)
-    z = torch.empty((height, width), dtype=F32, device=coef.device)
-    src = torch.empty((height, width, 4), dtype=F32, device=coef.device)
-    with torch.cuda.device(coef.device):
-        k1.launch(coef, payload.contiguous(), bins.tile_start.contiguous(),
-                  bins.tri_ids.contiguous(), tex_lut, light_scalars(light), z,
-                  src, height, width, int(y_offset), int(x_offset))
+    args = (coef, payload.contiguous(), bins.tile_start.contiguous(),
+            bins.tri_ids.contiguous(), tex_lut, light_scalars(light))
+    offsets = (height, width, int(y_offset), int(x_offset))
+    if fb is None:
+        z = torch.empty((height, width), dtype=F32, device=device)
+        src = torch.empty((height, width, 4), dtype=F32, device=device)
+        with torch.cuda.device(device):
+            k1.launch(*args, z, src, *offsets)
+        KERNEL_LAUNCHES += 1
+        return z, src, bins.overflow
+    fb_color = fb.color.contiguous()
+    if fb_color.data_ptr() % 16:
+        fb_color = fb_color.clone()
+    if out is None:
+        out = (torch.empty((height, width, 4), dtype=F32, device=device),
+               torch.empty((height, width), dtype=F32, device=device))
+    if not (out[0].is_contiguous() and out[1].is_contiguous()):
+        raise ValueError("out planes must be contiguous (the kernel writes "
+                         "them row-major)")
+    require_aligned(out_color=out[0])
+    shaded = (torch.zeros((), dtype=I32, device=device) if count_shaded
+              else None)
+    with torch.cuda.device(device):
+        k1.launch(*args, None, None, *offsets, fb_color=fb_color,
+                  fb_depth=fb.depth.contiguous(), out_color=out[0],
+                  out_depth=out[1], shaded=shaded)
     KERNEL_LAUNCHES += 1
-    return z, src, bins.overflow
+    return Framebuffer(*out), bins.overflow, shaded
 
 
 # ---------------------------------------------------------------- plain twins
@@ -380,10 +435,13 @@ def shade_plain(p, b, tex_lut, light: Light):
 
 def render_fused_plain(coef, payload, bins: Bins, tex_lut, light: Light,
                        height: int, width: int, y_offset: int = 0,
-                       x_offset: int = 0):
+                       x_offset: int = 0, *, fb: Framebuffer | None = None,
+                       out=None, count_shaded: bool = False):
     """The kernel's plain-torch twin: same inputs, same outputs, same op
     order. Phase 1 is winner_plain; phase 2 shades every covered pixel at
-    once by gathering its winner's payload."""
+    once by gathering its winner's payload; with `fb`, the merge is the
+    draw call's torch merge over the (z, src) planes (render_fused says
+    what it returns)."""
     bz, bid, bb = winner_plain(coef, bins, height, width, y_offset, x_offset)
     z_img = tiles_to_image(bz, bins, height, width).contiguous()
     covered = z_img != float("inf")
@@ -392,4 +450,25 @@ def render_fused_plain(coef, payload, bins: Bins, tex_lut, light: Light,
     if win.numel():
         b = tuple(tiles_to_image(x, bins, height, width)[covered] for x in bb)
         src[covered] = shade_plain(payload[win], b, tex_lut, light)
-    return z_img, src, bins.overflow
+    if fb is None:
+        return z_img, src, bins.overflow
+    merged, shaded = merge_plain(fb, z_img, src, out, count_shaded)
+    return merged, bins.overflow, shaded
+
+
+def merge_plain(fb: Framebuffer, z, src, out=None,
+                count_shaded: bool = False):
+    """The depth merge of K1's (z, src) into fb in plain torch, the twin of
+    the kernel's epilogue: win = z < fb.depth; colour where(win,
+    blend_over(src, fb.color), fb.color), depth where(win, z, fb.depth),
+    copied into `out` when given. Returns (Framebuffer, the winners as an
+    i32 scalar with count_shaded, else None)."""
+    win = z < fb.depth
+    color = torch.where(win[..., None], blend_over(src, fb.color), fb.color)
+    depth = torch.where(win, z, fb.depth)
+    if out is not None:
+        out[0].copy_(color)
+        out[1].copy_(depth)
+        color, depth = out
+    shaded = win.sum(dtype=I32) if count_shaded else None
+    return Framebuffer(color, depth), shaded

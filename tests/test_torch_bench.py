@@ -103,8 +103,11 @@ def test_a_cell_that_fails_its_gate_gets_no_timing(monkeypatch, tmp_path,
     real = render_fused.render_fused_plain
 
     def deeper(*args, **kwargs):
-        z, src, overflow = real(*args, **kwargs)
-        return z + 1.0, src, overflow
+        # the draw call's K1 merges into the framebuffer: its depth, one
+        # deeper (in place, so that planes given as `out` hold it too)
+        merged, overflow, shaded = real(*args, **kwargs)
+        merged.depth.add_(1.0)
+        return merged, overflow, shaded
 
     @contextlib.contextmanager
     def wrong_twins():
