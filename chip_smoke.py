@@ -8,15 +8,20 @@
     python3 chip_smoke.py --bands    # phases 1, 2 and the band split over
                                      # every card (band_paths and
                                      # band_graph_check)
+    python3 chip_smoke.py --verbs-against DIR  # phases 1, 2 and the API
+                                     # frame's verbs of the checkout at DIR
+                                     # and of this tree, in turns, each in a
+                                     # process of its own (verb_times)
 
 Run from the root of a checkout. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile the six kernel sources (csrc/render_fused.cu = K1,
+  2. build: compile the seven kernel sources (csrc/render_fused.cu = K1,
      csrc/raster_visibility.cu = K2, csrc/render_ordered.cu = K3,
      csrc/vertex_pass.cu = VP, the vertex stage, csrc/binning.cu = BN, the
-     binning, csrc/shade_deferred.cu = DS, the deferred shading), one nvcc
-     per source, all started together; seconds, registers and spills;
+     binning, csrc/shade_deferred.cu = DS, the deferred shading,
+     csrc/draw2d.cu = D2, the 2D verbs), one nvcc per source, all started
+     together; seconds, registers and spills;
   3. kernel vs plain twin at the main paths' shapes, both timed with CUDA
      events (plain, kernel, kernel, plain):
        K1 at config 4 (1920x1080) and config 5 (3840x2160, 1,000,000
@@ -53,6 +58,17 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      tile of more than 512 triangles, grids of shared edges through pixel
      centres and along sub-block borders, each as a whole frame and as
      ragged shards at non-zero offsets (K1 also with its merge);
+       D2 at 1920x1080 (draw2d_kernel_vs_plain): every case of
+         models/draw2d_cases.py (every verb kind, windows partly and wholly
+         off the frame, zero sizes, non-finite and far values, both text
+         layouts at scale 1 and 2, strings longer than a launch) through
+         draw2d.draw against draw_plain, and every render_triangle case
+         against the CPU path: bit-equal, NaN at the same places, inputs
+         unwritten, one launch a verb; the API frame's ten D2 launches
+         timed (loop of the prepared entry calls, wrapper, plain twin)
+         against the bound by bytes; setup_host against the
+         card's setup; the API frame's 2D verbs, text and render_triangle
+         under torch.cuda.set_sync_debug_mode("error");
   4. main paths through the public entry points, each with every kernel's
      launch count set to 0 just before and read just after (VP: at least
      once per pack_draws call on "fused" and "tile", counted by
@@ -61,7 +77,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      vertex_batch.pack); BN: once per binning.bin_triangles call, i.e. per
      K1, K2 or K3 launch that bins for itself, once per shared table, never
      for the distributed exchange; DS: once per pipeline.shade_deferred
-     call, i.e. per draw on "pallas" and "ref" and per render_triangle):
+     call, i.e. per draw on "pallas" and "ref" and per render_triangle;
+     D2: once per 2D verb, string of up to 256 glyphs and
+     render_triangle):
        config 4 (draw_meshes) 3 frames and config 5 (draw_mesh "fused") 2
          frames: one K1 launch per frame;
        config 5 on backend "pallas", 2 frames: one VP, one K2 and one DS
@@ -79,8 +97,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
          rectangles, a line, a circle, a rotated scaled bilinear blit),
          render_mesh_ordered of the translucent sphere (one K3 launch), a
          textured render_triangle, the DebugHud with the frame's counters,
-         a proportional footer, finish_frame: K1 3, K2 0, K3 3, DS 3; then
-         one demo_frame on "pallas": VP 3, K2 3, DS 3. The last frame is written with
+         a proportional footer, finish_frame: K1 3, K2 0, K3 3, DS 3, D2
+         30 (ten 2D launches a frame); then one demo_frame on "pallas": VP
+         3, K2 3, DS 3, D2 5. The last frame is written with
          present_png, decoded again natively and must equal the packed
          frame byte for byte;
      ms/frame, shaded Mpix/s and Mtris/s;
@@ -159,8 +178,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
      beside them; on "pallas" the vertex stage is stage_draw_mesh, with
      prepare_draw timed beside it), after the counted windows; config 5's
      device operations a steady frame with the merge in K1 and with the
-     torch merge it replaced; and the API frame's verbs one by one (best of
-     three); then staging vs prepare_draw: the vertex stage of "pallas",
+     torch merge it replaced; and the API frame's verbs one by one (host
+     ms to a synchronise and the call's own host ms, best of three; device
+     ms and device operations of a call, torch.profiler; ATen operations;
+     host synchronisations); then staging vs prepare_draw: the vertex stage of "pallas",
      "ref" and "scan" (one VP launch, no vertex graph sighting) against
      prepare_draw on the card at config 5 ("pallas") and config 4's four
      draws (all three routes): setup.coef, bbox, valid and attrs10
@@ -938,15 +959,235 @@ def stress_vs_plain():
                   f"too, {int(n)} winners")
 
 
+# ------------------------------------------------------ 2D kernel vs twin
+
+
+def draw2d_kernel_vs_plain(card) -> dict:
+    """csrc/draw2d.cu (D2) against its twins on the same inputs at 1920x1080:
+    every case of models/draw2d_cases.py through draw2d.draw against
+    draw_plain (every verb kind, the edge windows, both text layouts, strings
+    longer than one launch), and every render_triangle case through
+    draw2d.triangle against the CPU path: colour and depth bit-equal, NaN at
+    the same places, the input planes unwritten, one launch a verb. Then the
+    API frame's ten D2 launches one by one: the launch loop (200 times the
+    verb's prepared entry calls, the whole frame written), the wrapper (20
+    calls), the plain twin, and the bound by bytes (32 B a pixel for a
+    verb, z and tri written for the triangle). Last, the API
+    frame's 2D verbs, text and render_triangle under
+    torch.cuda.set_sync_debug_mode("error"): a host read fails the run."""
+    import numpy as np
+    import torch
+
+    from dtrenderer_tpu_torch import api
+    from dtrenderer_tpu_torch.assets.font import encode_text
+    from dtrenderer_tpu_torch.kernels import draw2d as kd
+    from dtrenderer_tpu_torch.models import draw2d_cases as cases
+    from dtrenderer_tpu_torch.ops import draw2d, text
+    from dtrenderer_tpu_torch.ops.fb import Framebuffer
+    from dtrenderer_tpu_torch.tools import demo
+    from dtrenderer_tpu_torch.utils.color import rgba
+
+    dev = torch.device(DEVICE)
+    h, w = 1080, 1920
+    t0 = time.perf_counter()
+    fb = cases.framebuffer(h, w, dev, seed=4)
+    before = [t.clone() for t in fb]
+    n_verbs = n_full = 0
+    errs = []  # (max |got - want|, elements differing) of each comparison
+
+    def check(tag, got, want):
+        errs.append(abs_err(got, want))
+        same_bits_nan(tag, got, want)
+    for case in cases.verb_cases(h, w, dev, seed=11):
+        verb = case.make(fb)
+        reset_counts()
+        got = draw2d.draw(fb, verb)
+        torch.cuda.synchronize()
+        n = read_counts()["D2"]
+        want_n = (0 if verb.window.empty else
+                  -(-verb.text.codes.shape[0] // 256)
+                  if verb.kind == draw2d.TEXT else 1)
+        if n != want_n:
+            raise AssertionError(f"2D {case.name}: {n} launches, want "
+                                 f"{want_n}")
+        want = draw2d.draw_plain(fb, verb)
+        check(f"2D kernel vs plain {case.name}", got.color, want.color)
+        n_verbs += 1
+        n_full += verb.window == draw2d.Window.full(h, w)
+    tex = cases.bitmap(dev, seed=9, shape=(64, 64))
+    fb_cpu = Framebuffer(fb.color.cpu(), fb.depth.cpu())
+    n_tris = 0
+    for case in cases.triangle_cases(h, w, seed=11):
+        for t in (tex, None):
+            got = draw2d.triangle(fb, case.corners, t, case.sampling,
+                                  case.cull_backfaces)
+            want = draw2d.triangle(fb_cpu, case.corners,
+                                   None if t is None else t.cpu(),
+                                   case.sampling, case.cull_backfaces)
+            for name in ("color", "depth"):
+                check(f"render_triangle {case.name} {name}",
+                      getattr(got, name).cpu(), getattr(want, name))
+            n_tris += 1
+    for a, b in zip(before, fb):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("2D kernel vs plain: a verb wrote its input")
+    max_err = max(e for e, _ in errs)
+    n_diff = sum(n for _, n in errs)
+    print(f"2D kernel vs plain: {n_verbs} verbs ({n_full} on the whole "
+          f"frame) and {n_tris} render_triangle calls at {w}x{h} bit-equal "
+          f"to the plain path (max |got - want| {max_err}, {n_diff} elements "
+          f"differing), input planes unwritten, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the API frame's ten D2 launches
+    frame = demo.ApiFrame(w, h, dev)
+    state = frame.update(api.new_state(w, h, device=dev), 0.6)
+    sfb = state.fb
+    hud_lines = ["frame: %7.2f ms" % 16.67, "tris: 12345/23456  px: 778094",
+                 "API frame %dx%d" % (w, h)]
+    verbs = {
+        "rectangle": draw2d.rect_verb(sfb, (20, h - 90), (120, h - 20),
+                                      rgba(0.9, 0.2, 0.2, 0.6)),
+        "rectangle rotated": draw2d.rect_verb(
+            sfb, (70, h - 110), (180, h - 60), rgba(0.2, 0.6, 0.9, 0.5),
+            api.transform2d(rotation=0.48, device=dev)),
+        "line": draw2d.line_verb(sfb, (w - 180, h - 30), (w - 30, h - 100),
+                                 rgba(1, 1, 0.3, 1)),
+        "circle": draw2d.circle_verb(sfb, (w - 100, h - 140), 28,
+                                     rgba(0.3, 0.9, 0.4, 0.8), None),
+        "bitmap": draw2d.blit_verb(
+            sfb, demo._blit_bitmap(dev), (w - 220, 40),
+            api.transform2d(rotation=-0.6, scale=3.0, device=dev),
+            "bilinear"),
+        **{f"HUD line {i}": text.text_verb(
+            sfb, frame.hud.font, encode_text(ln), (4, 4 + i * (
+                frame.hud.font.cell_h + 2)), (1.0, 1.0, 1.0, 1.0), 1, False)
+           for i, ln in enumerate(hud_lines)},
+        "footer": text.text_verb(
+            sfb, frame.sans, encode_text(demo.FOOTER),
+            (8, h - frame.sans.cell_h - 6), demo.FOOTER_COLOR, 1, True),
+    }
+    color = sfb.color.contiguous()
+    out = torch.empty_like(color)
+    plane = 2 * color.numel() * color.element_size()
+    rows = {}
+    for name, verb in verbs.items():
+        made = kd.calls(verb, color, out)  # the entry calls, made ready
+
+        def loop(made=made):
+            for fn, args in made:
+                fn(*args)
+
+        a = launch_loop_ms(loop)
+        wrapper = cuda_ms(lambda verb=verb: draw2d.draw(sfb, verb), 20)
+        plain = cuda_ms(lambda verb=verb: draw2d.draw_plain(sfb, verb), 3)
+        bnd = bound(plane, 0)
+        rows[name] = (min(a), wrapper, plain, bnd[0])
+        print(f"D2 {name}: window {tuple(verb.window)}, loop {a[0]:.4f}, "
+              f"{a[1]:.4f} ms, wrapper {wrapper:.4f}, plain {plain:.4f}, "
+              f"bound {bnd[0]:.4f} ms by bytes ({plane} B) [{card}]")
+    corners = np.asarray([
+        [0.30 * w, 0.08 * h, 0.05, 1.0, 0, 1, 1.0, 1.0, 1.0, 0.9],
+        [0.46 * w, 0.12 * h, 0.05, 0.5, 1, 1, 1.0, 1.0, 1.0, 0.9],
+        [0.34 * w, 0.30 * h, 0.05, 0.25, 0, 0, 1.0, 1.0, 1.0, 0.9]],
+        np.float32)
+    coef, bbox, valid = draw2d.setup_host(corners[:, :4], w, h, False)
+    win = draw2d.Window(bbox[1], bbox[3] + 1, bbox[0], bbox[2] + 1)
+    attrs = draw2d.corner_attrs_host(corners)
+    z = torch.empty((h, w), device=dev)
+    tri = torch.empty((h, w), dtype=torch.int32, device=dev)
+    rows_out = (torch.empty((1, 16), device=dev),
+                torch.empty((1, 3, 10), device=dev))
+    tl = launch_loop_ms(lambda: kd.triangle(coef, attrs, win, z, tri,
+                                            *rows_out))
+    t_plain = cuda_ms(lambda: draw2d.triangle_gbuffer_plain(
+        torch.from_numpy(coef[None]).to(dev), win, h, w), 3)
+    zp, tp = draw2d.triangle_gbuffer_plain(torch.from_numpy(coef[None]).to(dev),
+                                           win, h, w)
+    check("D2 triangle G-buffer z", z, zp)
+    check("D2 triangle G-buffer tri", tri, tp)
+    max_err = max(e for e, _ in errs)
+    n_diff = sum(n for _, n in errs)
+    # the setup on CPU tensors (setup_host) against the same function on
+    # the card, for this triangle and every render_triangle case
+    from dtrenderer_tpu_torch.ops import geometry
+
+    n_setups = 0
+    for cs in [corners, *(c.corners for c in cases.triangle_cases(
+            h, w, seed=11))]:
+        for cull in (False, True):
+            hc, hb, hv = draw2d.setup_host(cs[:, :4], w, h, cull)
+            c = torch.from_numpy(np.ascontiguousarray(cs[:, :4])).to(dev)
+            setup = geometry.triangle_setup_from_corners(
+                c[0:1], c[1:2], c[2:3], w, h, cull)
+            same_bits_nan("setup_host vs the card's setup",
+                          setup.coef[0].cpu(), torch.from_numpy(hc))
+            if setup.bbox[0].tolist() != hb or bool(setup.valid[0]) != hv:
+                raise AssertionError("setup_host's bbox or valid differs "
+                                     "from the card's setup")
+            n_setups += 1
+    tb = bound(nbytes(z, tri), 0)
+    rows["triangle G-buffer"] = (min(tl), None, t_plain, tb[0])
+    print(f"D2 triangle G-buffer: window {tuple(win)}, loop {tl[0]:.4f}, "
+          f"{tl[1]:.4f} ms, plain {t_plain:.4f}, bound {tb[0]:.4f} ms by "
+          f"bytes; setup_host = the card's setup bit for bit on {n_setups} "
+          f"triangles [{card}]")
+    total = {k: sum(r[i] for r in rows.values() if r[i] is not None)
+             for i, k in enumerate(("loop_ms", "wrapper_ms", "plain_ms",
+                                    "bound_ms"))}
+    print(f"D2 the API frame's ten launches summed: "
+          f"{json.dumps({k: round(v, 4) for k, v in total.items()})} [{card}]")
+
+    # no host read: the API frame's 2D part under sync debug mode "error"
+    def overlay():
+        st = api.render_rectangle(state, (20, h - 90), (120, h - 20),
+                                  rgba(0.9, 0.2, 0.2, 0.6))
+        st = api.render_rectangle(st, (70, h - 110), (180, h - 60),
+                                  rgba(0.2, 0.6, 0.9, 0.5),
+                                  api.transform2d(rotation=0.48, device=dev))
+        st = api.render_line(st, (w - 180, h - 30), (w - 30, h - 100),
+                             rgba(1, 1, 0.3, 1))
+        st = api.render_circle(st, (w - 100, h - 140), 28,
+                               rgba(0.3, 0.9, 0.4, 0.8))
+        st = api.render_circle(st, (w - 100, h - 140), 28,
+                               rgba(0.3, 0.9, 0.4, 0.8), False)
+        st = api.render_bitmap(st, demo._blit_bitmap(dev), (w - 220, 40),
+                               api.transform2d(rotation=-0.6, scale=3.0,
+                                               device=dev),
+                               sampling_mode="bilinear")
+        st = frame.triangle(st)
+        st = api.render_text(st, "one line of text", (4, 200))
+        frame.hud.push_text("API frame %dx%d", w, h)
+        st = st._replace(fb=frame.hud.render(st.fb, None))
+        return demo.draw_footer(st, frame.sans)
+
+    overlay()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        overlay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = host_syncs(overlay)
+    print(f"2D verbs, text and render_triangle under "
+          f"set_sync_debug_mode('error'): no host read ({syncs} "
+          f"synchronisations counted under 'warn') [{card}]")
+    return {"rows": rows, "total": total, "max_abs_err": max_err,
+            "n_diff": n_diff}
+
+
 # ------------------------------------------------------------- main paths
 
 
 def reset_counts():
-    from dtrenderer_tpu_torch.ops import binning, pipeline, raster_ordered
-    from dtrenderer_tpu_torch.ops import raster_pallas, render_fused
-    from dtrenderer_tpu_torch.ops import vertex_batch, vertex_graph
+    from dtrenderer_tpu_torch.ops import binning, draw2d, pipeline
+    from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
+    from dtrenderer_tpu_torch.ops import render_fused, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
 
     binning.KERNEL_LAUNCHES = 0
+    draw2d.KERNEL_LAUNCHES = 0
     pipeline.KERNEL_LAUNCHES = 0
     render_fused.KERNEL_LAUNCHES = 0
     raster_pallas.KERNEL_LAUNCHES = 0
@@ -960,27 +1201,31 @@ def read_counts() -> dict:
     is launched by vertex_batch.run_pass and by every replay of a graph
     that captured it (vertex_graph.REPLAYS); "BN", the binning kernels, by
     binning.bin_triangles; "DS", the deferred shading kernel, by
-    pipeline.shade_deferred."""
-    from dtrenderer_tpu_torch.ops import binning, pipeline, raster_ordered
-    from dtrenderer_tpu_torch.ops import raster_pallas, render_fused
-    from dtrenderer_tpu_torch.ops import vertex_batch, vertex_graph
+    pipeline.shade_deferred; "D2", the 2D verb kernel, by ops/draw2d.py
+    draw (every 2D verb and string) and triangle (render_triangle)."""
+    from dtrenderer_tpu_torch.ops import binning, draw2d, pipeline
+    from dtrenderer_tpu_torch.ops import raster_ordered, raster_pallas
+    from dtrenderer_tpu_torch.ops import render_fused, vertex_batch
+    from dtrenderer_tpu_torch.ops import vertex_graph
 
     return {"K1": render_fused.KERNEL_LAUNCHES,
             "K2": raster_pallas.KERNEL_LAUNCHES,
             "K3": raster_ordered.KERNEL_LAUNCHES,
             "VP": vertex_batch.KERNEL_LAUNCHES + vertex_graph.REPLAYS,
             "BN": binning.KERNEL_LAUNCHES,
-            "DS": pipeline.KERNEL_LAUNCHES}
+            "DS": pipeline.KERNEL_LAUNCHES,
+            "D2": draw2d.KERNEL_LAUNCHES}
 
 
 def launches_ok(got: dict, want: dict) -> bool:
-    """K1, K2, K3, BN and DS launched exactly as `want` says; the vertex kernel at
-    least want["VP"] times (once per pack_draws call: a capture's first
-    call launches it twice, warm-up and replay; once per draw staged on
-    "pallas", "ref" or "scan"), or never when that is 0."""
+    """K1, K2, K3, BN, DS and D2 launched exactly as `want` says (a kernel
+    it leaves out: never); the vertex kernel at least want["VP"] times (once
+    per pack_draws call: a capture's first call launches it twice, warm-up
+    and replay; once per draw staged on "pallas", "ref" or "scan"), or
+    never when that is 0."""
     vp_ok = got["VP"] >= want["VP"] if want["VP"] else got["VP"] == 0
-    return vp_ok and all(got[k] == want[k]
-                         for k in ("K1", "K2", "K3", "BN", "DS"))
+    return vp_ok and all(got[k] == want.get(k, 0)
+                         for k in ("K1", "K2", "K3", "BN", "DS", "D2"))
 
 
 def frames(scene, n: int, card, tag: str):
@@ -1088,7 +1333,10 @@ def api_frame_path(card) -> dict:
     state, n, _ = platform.run_app(update, api.new_state(w, h, device=dev), 3,
                                    script)
     got = read_counts()
-    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6, "BN": 6, "DS": 3}
+    # D2 a frame: two rectangles, the line, the circle, the blit, the
+    # triangle's G-buffer, three HUD lines and the footer
+    want = {"K1": 3, "K2": 0, "K3": 3, "VP": 6, "BN": 6, "DS": 3,
+            "D2": 3 * 10}
     if not launches_ok(got, want) or n != 3:
         raise AssertionError(f"API frame: kernel launches {got}, want {want}")
     if torch.equal(images[0], images[2]):
@@ -1119,7 +1367,7 @@ def api_frame_path(card) -> dict:
         api.new_state(w, h, device=dev), 0.6, frame.cube, frame.ball,
         frame.tex, frame.grad, "pallas"))
     got2 = read_counts()
-    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 3, "BN": 3, "DS": 3}
+    want2 = {"K1": 0, "K2": 3, "K3": 0, "VP": 3, "BN": 3, "DS": 3, "D2": 5}
     if not launches_ok(got2, want2):
         raise AssertionError(f"demo frame on pallas: kernel launches {got2}, "
                              f"want {want2}")
@@ -1132,11 +1380,17 @@ def api_frame_path(card) -> dict:
     return {k: got[k] + got2[k] for k in got}
 
 
-def verb_times(frame, card, best_ms, all_ms):
-    """Each verb of the API frame alone on a 1080p state, host clock to a
-    synchronise, three samples each (after the counted windows: these
-    launches are not the main path's)."""
+def verb_times(frame, card, best_ms=None, all_ms=None) -> dict:
+    """Each verb of the API frame alone on a 1080p state (after the counted
+    windows: these launches are not the main path's). Per verb: "ms", host
+    clock to a synchronise, and "host_ms", the host's time in the call up to
+    its return (no synchronise), each the best of three; "device_ms", the
+    summed durations of the device operations one call enqueues, and
+    "launches", their number (kernels, copies, memsets; torch.profiler);
+    "host_ops", the ATen operations it dispatches; "syncs", the host
+    synchronisations it makes (torch.cuda.set_sync_debug_mode("warn"))."""
     import numpy as np
+    import torch
 
     from dtrenderer_tpu_torch import api
     from dtrenderer_tpu_torch.tools import demo
@@ -1147,8 +1401,6 @@ def verb_times(frame, card, best_ms, all_ms):
     proj, light, draws = demo.demo_draws(
         np.float32(0.6), w, h, frame.cube, frame.ball, frame.tex, frame.grad,
         dev)
-    rot = api.transform2d(rotation=0.48, device=dev)
-    spin = api.transform2d(rotation=-0.6, scale=3.0, device=dev)
     bmp = demo._blit_bitmap(dev)
     lines = 3
 
@@ -1156,6 +1408,7 @@ def verb_times(frame, card, best_ms, all_ms):
         frame.hud.push_text("chip_smoke API frame %dx%d", w, h)
         return frame.hud.render(state.fb, frame.counters)
 
+    # the demo frame builds its two Transform2D inside the frame: so here
     verbs = {
         "clear": lambda: api.clear(state, rgba(0.06, 0.07, 0.12, 1.0)),
         "render_meshes": lambda: api.render_meshes(
@@ -1169,7 +1422,7 @@ def verb_times(frame, card, best_ms, all_ms):
             state, (20, h - 90), (120, h - 20), rgba(0.9, 0.2, 0.2, 0.6)),
         "render_rectangle_rotated": lambda: api.render_rectangle(
             state, (70, h - 110), (180, h - 60), rgba(0.2, 0.6, 0.9, 0.5),
-            rot),
+            api.transform2d(rotation=0.48, device=dev)),
         "render_line": lambda: api.render_line(
             state, (w - 180, h - 30), (w - 30, h - 100), rgba(1, 1, 0.3, 1)),
         "render_circle": lambda: api.render_circle(
@@ -1177,7 +1430,9 @@ def verb_times(frame, card, best_ms, all_ms):
         "render_circle_outline": lambda: api.render_circle(
             state, (w - 100, h - 140), 28, rgba(0.3, 0.9, 0.4, 0.8), False),
         "render_bitmap": lambda: api.render_bitmap(
-            state, bmp, (w - 220, 40), spin, sampling_mode="bilinear"),
+            state, bmp, (w - 220, 40),
+            api.transform2d(rotation=-0.6, scale=3.0, device=dev),
+            sampling_mode="bilinear"),
         "render_triangle": lambda: frame.triangle(state),
         "render_text": lambda: api.render_text(state, "one line of text",
                                                (4, 200)),
@@ -1187,15 +1442,103 @@ def verb_times(frame, card, best_ms, all_ms):
     }
     out = {}
     for name, fn in verbs.items():
-        samples = [timed(fn)[1] for _ in range(3)]
-        out[name] = [round(x, 4) for x in samples]
-    best = {k: min(v) for k, v in out.items()}
-    best["hud_per_line"] = round(best[f"hud_{lines}_lines"] / lines, 4)
-    print("API frame verbs, ms (host clock to a synchronise, three samples "
-          f"each) [{card}]: {json.dumps(out)}")
-    print(f"API frame verbs, best ms [{card}]: {json.dumps(best)}")
-    print(f"API frame whole, ms [{card}]: "
-          f"{json.dumps({'frames': [round(t, 4) for t in all_ms], 'best': round(best_ms, 4)})}")
+        fn()
+        ms = [timed(fn)[1] for _ in range(3)]
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ops = max((verb_device_ops(fn) for _ in range(2)), key=len)
+        out[name] = {"ms": round(min(ms), 4), "host_ms": round(min(host), 4),
+                     "device_ms": round(sum(us for _, us in ops) / 1e3, 4),
+                     "launches": len(ops), "host_ops": host_ops(fn),
+                     "syncs": host_syncs(fn)}
+    two_d = [k for k in out if k not in (
+        "clear", "render_meshes", "render_mesh_ordered", "finish_frame")]
+    total = {k: round(sum(out[v][k] for v in two_d), 4)
+             for k in ("ms", "host_ms", "device_ms", "launches", "host_ops",
+                       "syncs")}
+    print(f"API frame verbs [{card}]: {json.dumps(out)}")
+    print(f"API frame 2D verbs, render_triangle and text summed "
+          f"({len(two_d)} calls) [{card}]: {json.dumps(total)}")
+    if all_ms is not None:
+        print(f"API frame whole, ms [{card}]: "
+              f"{json.dumps({'frames': [round(t, 4) for t in all_ms], 'best': round(best_ms, 4)})}")
+    return out
+
+
+def verb_device_ops(fn) -> list:
+    """(name, microseconds) of each device operation one fn() enqueues,
+    from torch.profiler's trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def verb_times_of(root: str) -> int:
+    """--verb-times ROOT: verb_times of the package of the checkout at ROOT
+    (this tree or another, e.g. a git archive of the parent commit), after
+    building its kernels, in a process of its own; one JSON line."""
+    import concurrent.futures as cf
+    import importlib
+    import pkgutil
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import dtrenderer_tpu_torch
+    from dtrenderer_tpu_torch import api, kernels
+    from dtrenderer_tpu_torch.tools import demo
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    here = os.path.dirname(os.path.abspath(dtrenderer_tpu_torch.__file__))
+    if here != os.path.join(os.path.abspath(root), "dtrenderer_tpu_torch"):
+        raise AssertionError(f"imported {here}, not {root}'s package")
+    mods = [importlib.import_module(f"dtrenderer_tpu_torch.kernels.{m.name}")
+            for m in pkgutil.iter_modules(kernels.__path__)]
+    with cf.ThreadPoolExecutor(len(mods)) as ex:
+        list(ex.map(lambda m: m.library(), mods))
+    dev = torch.device(DEVICE)
+    frame = demo.ApiFrame(1920, 1080, dev)
+    times = []
+    for i in range(6):
+        _, ms = timed(lambda: api.finish_frame(frame.update(
+            api.new_state(1920, 1080, device=dev), 0.6)))
+        times.append(ms)
+    out = verb_times(frame, card_line())
+    print(json.dumps({"root": root, "frame_ms": [round(t, 4) for t in times],
+                      "verbs": out}))
+    return 0
+
+
+def verbs_against(card, parent: str):
+    """--verbs-against DIR: verb_times of the checkout at DIR and of this
+    tree in turns (parent, this, this, parent), each in a process of its
+    own (both packages are dtrenderer_tpu_torch)."""
+    for side, root in (("parent", parent), ("this", REPO), ("this", REPO),
+                       ("parent", parent)):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--verb-times", root], capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"verb times of {root} failed:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        print(f"verbs of the {side} tree ({root}):")
+        print(res.stdout.strip().splitlines()[-3].split("]: ", 1)[1])
+        print(res.stdout.strip().splitlines()[-2].split("]: ", 1)[1])
+        print(res.stdout.strip().splitlines()[-1])
+    print(f"verbs against {parent}: done [{card}]")
 
 
 # ---------------------------------------------------------- stage breakdown
@@ -1353,7 +1696,7 @@ def staging_vs_prepare_draw(card, cfg4p, cfg5p, reps: int = 10):
                 torch.cuda.synchronize()
                 got = read_counts()
                 if got != {"K1": 0, "K2": 0, "K3": 0, "VP": 1, "BN": 0,
-                           "DS": 0} or sightings() != graph:
+                           "DS": 0, "D2": 0} or sightings() != graph:
                     raise AssertionError(
                         f"{tag}: launches {got}, vertex graph (eager, "
                         f"captures, replays) {graph} -> {sightings()}")
@@ -1392,6 +1735,24 @@ def staging_vs_prepare_draw(card, cfg4p, cfg5p, reps: int = 10):
               f"frame, host clock to a synchronise (median of {reps}) "
               f"{json.dumps(med)}; plan_run's share of the stage "
               f"{med['plan_run'] / med['stage']:.2f} [{card}]")
+
+
+def abs_err(got, want) -> tuple:
+    """(max |got - want| as a float, the elements whose bits differ) over
+    the elements where neither is NaN; an equal pair counts 0 (equal
+    infinities too)."""
+    import torch
+
+    a, b = got.contiguous(), want.contiguous()
+    if a.dtype == torch.float32:
+        ok = ~(torch.isnan(a) | torch.isnan(b))
+        bits_a, bits_b = a.view(torch.int32), b.view(torch.int32)
+    else:
+        ok = torch.ones_like(a, dtype=torch.bool)
+        bits_a, bits_b = a, b
+    d = torch.where((a == b) | ~ok, 0.0, (a.double() - b.double()).abs())
+    n = int(((bits_a != bits_b) & ok).sum())
+    return (float(d.max()) if d.numel() else 0.0), n
 
 
 def same_bits_nan(tag, got, want) -> int:
@@ -1519,7 +1880,7 @@ def band_paths(card, cfg4, cfg5, sphere) -> dict:
     from dtrenderer_tpu_torch.utils.benchlib import device_time
 
     dev = torch.device(DEVICE)
-    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0}
+    total = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0, "D2": 0}
     rows = 8
     mesh8 = shard.make_mesh(frames=1, rows=rows)
     mesh42 = shard.make_mesh(frames=1, rows=4, cols=2)
@@ -2818,12 +3179,13 @@ def draw2d_text_check():
 
 def build_all():
     """One nvcc per kernel source, all started together."""
-    from dtrenderer_tpu_torch.kernels import binning, raster_visibility
-    from dtrenderer_tpu_torch.kernels import render_fused, render_ordered
-    from dtrenderer_tpu_torch.kernels import shade_deferred, vertex_pass
+    from dtrenderer_tpu_torch.kernels import binning, draw2d
+    from dtrenderer_tpu_torch.kernels import raster_visibility, render_fused
+    from dtrenderer_tpu_torch.kernels import render_ordered, shade_deferred
+    from dtrenderer_tpu_torch.kernels import vertex_pass
 
     mods = (render_fused, raster_visibility, render_ordered, vertex_pass,
-            binning, shade_deferred)
+            binning, shade_deferred, draw2d)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
         infos = list(ex.map(lambda m: m.library()[1], mods))
@@ -2839,12 +3201,15 @@ def build_all():
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (argv in ([], ["--bands"])
-            or (len(argv) == 2 and argv[0] == "--bin-against")):
+            or (len(argv) == 2 and argv[0] in (
+                "--bin-against", "--verbs-against", "--verb-times"))):
         raise SystemExit("usage: python3 chip_smoke.py [--bands | "
-                         "--bin-against DIR]")
+                         "--bin-against DIR | --verbs-against DIR]")
     if not os.path.isdir(os.path.join(REPO, "dtrenderer_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
                          "repository (dtrenderer_tpu_torch/ is missing)")
+    if argv[:1] == ["--verb-times"]:
+        return verb_times_of(argv[1])
     sys.path.insert(0, REPO)
     import torch
 
@@ -2862,7 +3227,7 @@ def main(argv=None) -> int:
     from dtrenderer_tpu_torch.ops import render_fused as rf
     from dtrenderer_tpu_torch.ops import vertex_batch
 
-    *raster, vp, _, _ = build_all()
+    *raster, vp, _, _, _ = build_all()
     for m in raster:
         if m.tile_shape() != (rf.TILE_H, rf.TILE_W):
             raise AssertionError(f"{m.SOURCE} tile {m.tile_shape()} != "
@@ -2871,6 +3236,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"{vp.SOURCE} table of {vp.table_cols()} "
                              f"columns != {vertex_batch.TABLE_COLS}")
 
+    if argv[:1] == ["--verbs-against"]:
+        verbs_against(card, argv[1])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
     cfg4 = scenes.make_config4(device=dev)
@@ -2904,8 +3275,10 @@ def main(argv=None) -> int:
     k1m_4 = k1_merge_vs_plain(cfg4, card)
     k1m_8 = k1_merge_vs_plain(cfg5, card, rows=8)
     stress_vs_plain()
+    d2 = draw2d_kernel_vs_plain(card)
 
-    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "VP": 0, "BN": 0, "DS": 0,
+                "D2": 0}
     paths = [
         ("K1 path", [(cfg4, 3), (cfg5, 2)],
          {"K1": 5, "K2": 0, "K3": 0, "VP": 5, "BN": 5, "DS": 0}),
@@ -3016,6 +3389,20 @@ def main(argv=None) -> int:
               ms_config4_1080p=ds_4[1], plain_ms_config4_1080p=ds_4[2],
               bound_ms_config4_1080p=ds_4[3][0],
               launch_loop_ms_config4_1080p=list(ds_4[4])),
+        # the API frame's ten launches a frame, summed (per verb beside)
+        entry("draw2d", "draw2d.cu",
+              "dtrenderer_tpu/ops/draw2d.py, text.py and api.py "
+              "render_triangle (XLA ops: no pl.pallas_call)", "D2",
+              (d2["max_abs_err"], d2["total"]["loop_ms"],
+               d2["total"]["plain_ms"], (d2["total"]["bound_ms"], "bytes"),
+               (d2["total"]["loop_ms"],)),
+              elements_differing=d2["n_diff"],
+              wrapper_ms=d2["total"]["wrapper_ms"], **{
+                  f"{k}_{name.replace(' ', '_')}": v
+                  for name, r in d2["rows"].items()
+                  for k, v in zip(("ms", "wrapper_ms", "plain_ms",
+                                   "bound_ms"), r)
+                  if v is not None}),
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

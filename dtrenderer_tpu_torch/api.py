@@ -16,11 +16,10 @@ import numpy as np
 import torch
 
 from dtrenderer_tpu_torch.assets.font import Font, bake_builtin_font, encode_text
-from dtrenderer_tpu_torch.ops import draw2d, fb as fblib, geometry, pipeline
+from dtrenderer_tpu_torch.ops import draw2d, fb as fblib, pipeline
 from dtrenderer_tpu_torch.ops import text as textlib
 from dtrenderer_tpu_torch.ops.draw2d import Transform2D, transform2d
 from dtrenderer_tpu_torch.ops.fb import Framebuffer
-from dtrenderer_tpu_torch.ops.raster_ref import rasterize_ref
 from dtrenderer_tpu_torch.ops.shading import make_light
 
 __all__ = [
@@ -29,8 +28,6 @@ __all__ = [
     "render_triangle", "render_mesh", "render_mesh_ordered", "render_meshes",
     "render_text", "finish_frame", "make_light",
 ]
-
-F32 = torch.float32
 
 
 class RenderState(NamedTuple):
@@ -103,12 +100,12 @@ def render_triangle(state: RenderState, p0, p1, p2, color=(1, 1, 1, 1),
     p0..p2: (x, y) or (x, y, z[, q]) screen coords; z defaults to 0.5, q to 1
     (pass per-corner q for perspective-correct interpolation of uv). Optional
     texture (premultiplied linear f32 [th,tw,4]) modulated by `color`;
-    depth-tested against the state's z-buffer; alpha blended.
+    depth-tested against the state's z-buffer; alpha blended. The setup and
+    the triangle's window (its bbox) come from the host values; the frame
+    is rasterized over that window only and shaded by the deferred pass
+    (ops/draw2d.triangle): on the card one D2 and one DS launch, no host
+    read.
     """
-    fb = state.fb
-    h, w = fb.depth.shape
-    device = fb.depth.device
-
     rows = []
     for p, uv in zip((p0, p1, p2), (uv0, uv1, uv2)):
         p = [float(x) for x in p]
@@ -116,27 +113,10 @@ def render_triangle(state: RenderState, p0, p1, p2, color=(1, 1, 1, 1),
             p.append({2: 0.5, 3: 1.0}[len(p)])
         rows.append(p[:4] + [float(uv[0]), float(uv[1])]
                     + [float(x) for x in color])
-    # one upload: per corner (sx, sy, sz, q, u, v, r, g, b, a)
-    k = torch.tensor(np.asarray(rows, np.float32), device=device)  # [3, 10]
-    c = k[:, 0:4]
-    setup = geometry.triangle_setup_from_corners(
-        c[0:1], c[1:2], c[2:3], w, h, cull_backfaces
-    )
-    z, tri = rasterize_ref(setup.coef, setup.valid, h, w)
-
-    # per-corner attrs [1, 3, 10]: q, u*q, v*q, rgba*q, n*q (0)
-    q = c[:, 3:4]  # [3, 1]
-    attrs = torch.cat(
-        [q, k[:, 4:6] * q, k[:, 6:10] * q,
-         torch.zeros((3, 3), dtype=F32, device=device)], dim=-1
-    )[None]
-    tex = (texture if texture is not None
-           else torch.ones((1, 1, 4), dtype=F32, device=device))
-    out = pipeline.shade_deferred(
-        fb, z, tri, setup.coef, attrs, tex, sampling_mode, "none",
-        make_light(device=device)
-    )
-    return state._replace(fb=out)
+    # per corner (sx, sy, sz, q, u, v, r, g, b, a), f32 on the host
+    corners = np.asarray(rows, np.float32)
+    return state._replace(fb=draw2d.triangle(
+        state.fb, corners, texture, sampling_mode, cull_backfaces))
 
 
 def _with_counters(state: RenderState, out, kwargs):

@@ -23,8 +23,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from dtrenderer_tpu_torch.assets import native
+from dtrenderer_tpu_torch.utils import tensor_version
 
 FIRST_CHAR = 32
 LAST_CHAR = 126
@@ -47,12 +49,31 @@ class Font(NamedTuple):
     advances: torch.Tensor | None = None  # f32 [95] advance (px), or None
 
 
+# advances tensor -> (its version counter, f32 [95] on the host)
+_HOST_ADVANCES = WeakIdKeyDictionary()
+
+
+def host_advances(font: Font) -> np.ndarray:
+    """The font's advances, f32 [95], on the host: kept from the bake, or
+    copied from the tensor once (again only after an in-place edit of it),
+    so that drawing text reads nothing back from the card. An inference
+    tensor keeps no version counter, so it is read every time."""
+    adv = font.advances
+    version = tensor_version(adv)
+    kept = _HOST_ADVANCES.get(adv)
+    if kept is None or version is None or kept[0] != version:
+        kept = (version, adv.detach().cpu().numpy().astype(np.float32))
+        _HOST_ADVANCES[adv] = kept
+    return kept[1]
+
+
 def _font(atlas_u8, cell_w: int, cell_h: int, advances, device) -> Font:
     atlas = atlas_u8.astype(np.float32) / np.float32(255.0)
+    advances = np.ascontiguousarray(advances, np.float32)
+    adv = torch.from_numpy(advances).to(device)
+    _HOST_ADVANCES[adv] = (tensor_version(adv), advances.copy())
     return Font(atlas=torch.from_numpy(atlas).to(device), cell_w=int(cell_w),
-                cell_h=int(cell_h),
-                advances=torch.from_numpy(
-                    np.ascontiguousarray(advances, np.float32)).to(device))
+                cell_h=int(cell_h), advances=adv)
 
 
 def bake_ttf_arrays(path: str, size: int):
